@@ -35,6 +35,9 @@ except ImportError:  # property suites skip via importorskip anyway
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test (compile-heavy)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the test skips itself without one)"
+    )
 
 
 @pytest.hookimpl(hookwrapper=True)
