@@ -12,18 +12,22 @@ and then runs these phases, failing (non-zero exit) on any error:
 1. K1 (``aig_sim.eval_mega`` / ``aig_sim.sig_eval``) against its plain
    torch version on the card, on the default-scale ``square`` circuit:
    rewrite- and refactor-shaped queries (the W=1 and W=32 tiers), a
-   k = 11..14 set for the W=512 tier, and whole-graph signatures.  The
-   kernel must be bit-equal to the plain version; a sample must match
-   python-int ``Aig.truth_table``.
+   k = 11..14 set (the W=512 tier) and whole-graph signatures, each
+   packed as ``eval_tts`` packs it (one launch per word tier).  Both row
+   spaces, shared memory (as the main path runs it) and global memory,
+   must be bit-equal to the plain version; a sample must match
+   python-int ``Aig.truth_table``.  Times per launch, per query and the
+   blocks per launch are printed.
 2. The main path, with every kernel launch count set to 0 first:
    ``characterize_suite`` over the default 9-circuit suite (front half,
-   through K1), the fused torch back half (``explore_suite``) and the
-   end check -- each winner lowered to a gate netlist and run through K2
-   (``ops.cim_evaluate``) at 2**16 test vectors, the adder's sums and
-   carries checked against integer arithmetic.  Winners must equal the
-   scalar ``backend="python"`` back half on the same characterization;
-   the adder's device-backend ``AigStats`` must equal the python
-   backend's.
+   through K1, every tier on the card: no host ``Aig.truth_table`` call
+   and at least one W=512 launch), the fused torch back half
+   (``explore_suite``) and the end check -- each winner lowered to a gate
+   netlist and run through K2 (``ops.cim_evaluate``) at 2**16 test
+   vectors, the adder's sums and carries checked against integer
+   arithmetic.  Winners must equal the scalar ``backend="python"`` back
+   half on the same characterization; the device-backend ``AigStats`` of
+   ``adder`` and ``log2`` must equal the python backend's.
 3. A 1024-variant Monte-Carlo sweep of the back half; its winners must
    equal the ``fused=False`` host-selection path.
 4. K2 against its plain torch version on the card, per winner netlist,
@@ -116,16 +120,20 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def mega_bytes(ch, k_max: int, w: int) -> int:
-    """Bytes one ``eval_mega`` chunk must move, each once: its real
-    instructions (padding slots left out), the pin map over the rows in
-    use, the elementary tables, the real root queries and their (n_q, W)
-    output."""
-    pad_row = len(ch.pin_rows) - 1  # every padding slot writes this row
-    n_instr = int((ch.waves[..., 3] != pad_row).sum())
-    n_rows = 1 + n_instr + int((ch.pin_rows >= 0).sum())
-    n_q = int(ch.qoff[-1])
-    return 4 * (4 * n_instr + n_rows + k_max * w + n_q + n_q * w)
+def mega_bytes(batch, k_max: int, w: int) -> int:
+    """Bytes one ``eval_mega`` launch must move, each once: its real
+    instructions (padding slots left out), the chunk table, the pin map
+    over the rows in use (each chunk's const0 row, its pinned support
+    rows and its cone rows), the elementary tables, the root queries and
+    their (n_q, W) output."""
+    import numpy as np
+
+    meta = batch.meta
+    scratch = np.repeat(meta[:, 3] - 1, meta[:, 1])  # each wave's padding row
+    n_instr = int((batch.waves[..., 3] != scratch[:, None]).sum())
+    n_rows = len(meta) + n_instr + int((batch.pin_rows >= 0).sum())
+    n_q = len(batch.rootp)
+    return 4 * (4 * n_instr + 6 * len(meta) + n_rows + k_max * w + n_q + n_q * w)
 
 
 #: Largest |kernel - plain| seen per kernel over every comparison made.
@@ -232,10 +240,10 @@ def k1_query_sets(aig):
     return {"rewrite": rewrite, "refactor": refactor, "wide": wide}
 
 
-def k1_chunks(aig, prog, items):
-    """``{w: [MegaChunk]}`` for ``items``, grouped by word tier exactly as
-    `aig_sim.eval_tts` groups them (plus the W=512 tier it leaves to the
-    host)."""
+def k1_batches(aig, prog, items):
+    """``{w: (idxs, MegaBatch)}`` for ``items``, grouped by word tier and
+    packed exactly as `aig_sim.eval_tts` packs them on the card (one
+    launch per tier)."""
     from repro_torch.kernels import aig_sim as A
 
     tiers: dict[int, list[int]] = {}
@@ -244,13 +252,23 @@ def k1_chunks(aig, prog, items):
     out = {}
     for w, idxs in sorted(tiers.items()):
         mem = A._cone_members(aig, items, idxs)
-        out[w] = (idxs, A._pack_mega_chunks(aig, prog, items, idxs, w, mem))
+        out[w] = (idxs, A._pack_mega(aig, prog, items, idxs, w, mem))
     return out
+
+
+@contextlib.contextmanager
+def global_memory(mod):
+    """Make a kernel wrapper of ``mod`` (`aig_sim` or `cim_logic`) take
+    its global-memory variant: no launch fits ``MAX_SHARED_BYTES = 0``."""
+    saved, mod.MAX_SHARED_BYTES = mod.MAX_SHARED_BYTES, 0
+    try:
+        yield
+    finally:
+        mod.MAX_SHARED_BYTES = saved
 
 
 def phase_k1(dev, rng):
     import numpy as np
-    import torch
     from repro_torch.core import circuits as C
     from repro_torch.core import transforms as T
     from repro_torch.kernels import aig_sim as A
@@ -262,40 +280,43 @@ def phase_k1(dev, rng):
         f"K1 circuit square: {aig.n_ands} ANDs; queries "
         + ", ".join(f"{k}={len(v)}" for k, v in sets.items())
     )
-    main_ops, main_bytes = [], 0
+    launches = []
     for name, items in sets.items():
-        for w, (idxs, chunks) in k1_chunks(aig, prog, items).items():
+        for w, (idxs, batch) in k1_batches(aig, prog, items).items():
             k_max = next(km for km, tw in A._TIERS if tw == w)
-            elem = A._dev_elem(k_max, dev)
-            checked = 0
-            for ch in chunks:
-                ops = tuple(
-                    torch.from_numpy(a).to(dev)
-                    for a in (ch.waves, ch.pin_rows)
-                ) + (elem, torch.from_numpy(ch.rootp).to(dev))
-                got = A.eval_mega(*ops)
-                want = A.eval_mega_plain(*ops)
-                same("eval_mega", got, want, f"K1 eval_mega ({name}, W={w})")
-                # sample against the python-int reference
-                out = got.cpu().numpy().view(np.uint32)
-                for bi, p in enumerate(ch.positions):
-                    if checked >= K1_SAMPLE:
-                        break
-                    roots, sup = items[idxs[p]]
-                    mask = (1 << (1 << len(sup))) - 1
-                    for ri, rl in enumerate(roots):
-                        row = out[int(ch.qoff[bi]) + ri]
-                        tt = int.from_bytes(row.tobytes(), "little") & mask
-                        check(
-                            tt == aig.truth_table(rl, sup),
-                            f"K1 truth table mismatch ({name}, W={w})",
-                        )
-                    checked += 1
-                if name != "wide":
-                    main_ops.append(ops)
-                    main_bytes += mega_bytes(ch, k_max, w)
+            A._check_chunks(
+                batch.waves, batch.meta, len(batch.pin_rows), batch.max_rows, batch.rootp
+            )
+            ops = batch.operands(dev, A._dev_elem(k_max, dev))
+            got = A.eval_mega(*ops)
+            want = A.eval_mega_plain(*ops[:5])
+            same("eval_mega", got, want, f"K1 eval_mega ({name}, W={w})")
+            with global_memory(A):
+                same("eval_mega", A.eval_mega(*ops), want,
+                     f"K1 eval_mega, global row space ({name}, W={w})")
+            # sample against the python-int reference
+            out = got.cpu().numpy().view(np.uint32)
+            checked = min(K1_SAMPLE, len(idxs))
+            for pos in range(checked):
+                roots, sup = items[idxs[pos]]
+                mask = (1 << (1 << len(sup))) - 1
+                for ri, rl in enumerate(roots):
+                    row = out[int(batch.qoff[pos]) + ri]
+                    tt = int.from_bytes(row.tobytes(), "little") & mask
+                    check(
+                        tt == aig.truth_table(rl, sup),
+                        f"K1 truth table mismatch ({name}, W={w})",
+                    )
+            blocks = len(batch.meta) * -(-w // batch.cw)
+            launches.append(
+                dict(name=name, w=w, queries=len(idxs), blocks=blocks, ops=ops,
+                     bytes=mega_bytes(batch, k_max, w))
+            )
             print(
-                f"  {name} W={w}: {len(idxs)} queries, {len(chunks)} chunks, "
+                f"  {name} W={w}: {len(idxs)} queries, {len(batch.meta)} chunks x "
+                f"{-(-w // batch.cw)} column slices = {blocks} blocks (wave width "
+                f"{batch.waves.shape[1]}, at most {int(batch.meta[:, 1].max())} waves "
+                f"and {batch.max_rows} rows a chunk); shared and global row space "
                 f"bit-equal to plain, {checked} checked against truth_table"
             )
 
@@ -310,27 +331,48 @@ def phase_k1(dev, rng):
     )
     vals0 = np.zeros((prog.n_pad, 64), dtype=np.uint32)
     vals0[1 : 1 + prog.n_pis] = patterns.view("<u4")
-    sig_ops = (
-        torch.from_numpy(prog.waves).to(dev),
-        torch.from_numpy(vals0.view(np.int32)).to(dev),
+    meta = np.array([[0, len(prog.waves), 0, prog.n_pad]], dtype=np.int32)
+    sig_ops = (*A.upload(dev, prog.waves, vals0.view(np.int32), meta), prog.n_pad)
+    sig_want = A.sig_eval_plain(*sig_ops[:3])
+    same("sig_eval", A.sig_eval(*sig_ops), sig_want, "K1 sig_eval")
+    with global_memory(A):
+        same("sig_eval", A.sig_eval(*sig_ops), sig_want, "K1 sig_eval, global row space")
+    sig_cw, _ = A._sig_cw(prog.waves.shape[1], prog.n_pad)
+    sig_blocks = -(-64 // sig_cw)
+    print(
+        f"  signatures: {sig_blocks} blocks ({sig_cw}-word column slices); shared and "
+        "global row space bit-equal to plain and to transforms._node_signatures"
     )
-    same("sig_eval", A.sig_eval(*sig_ops), A.sig_eval_plain(*sig_ops), "K1 sig_eval")
-    print("  signatures: bit-equal to plain and to transforms._node_signatures")
 
-    n = len(main_ops)
-    mega_ms = cuda_ms(lambda: [A.eval_mega(*o) for o in main_ops], 5) / n
-    mega_plain = cuda_ms(lambda: [A.eval_mega_plain(*o) for o in main_ops], 1) / n
+    # Times: device ms per launch (CUDA events), per query and per block.
+    for ln in launches:
+        ops = ln["ops"]
+        ln["ms"] = cuda_ms(lambda: A.eval_mega(*ops), 20)
+        with global_memory(A):
+            ln["global_ms"] = cuda_ms(lambda: A.eval_mega(*ops), 20)
+        ln["plain_ms"] = cuda_ms(lambda: A.eval_mega_plain(*ops[:5]), 1)
+        print(
+            f"  eval_mega {ln['name']} W={ln['w']}: {ln['ms']:.4f} ms/launch "
+            f"({1e3 * ln['ms'] / ln['queries']:.4f} us/query, {ln['blocks']} blocks); "
+            f"global row space {ln['global_ms']:.4f} ms; plain {ln['plain_ms']:.3f} ms; "
+            f"bound {ln['bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms"
+        )
+    n = len(launches)
+    mega = {k: sum(ln[k] for ln in launches) / n for k in ("ms", "plain_ms", "bytes")}
     sig_ms = cuda_ms(lambda: A.sig_eval(*sig_ops), 20)
-    sig_plain = cuda_ms(lambda: A.sig_eval_plain(*sig_ops), 3)
+    with global_memory(A):
+        sig_global = cuda_ms(lambda: A.sig_eval(*sig_ops), 20)
+    sig_plain = cuda_ms(lambda: A.sig_eval_plain(*sig_ops[:3]), 3)
     # the AND instructions (padding slots left out), vals0 in, vals out
     sig_bytes = 16 * aig.n_ands + 2 * nbytes(sig_ops[1])
     print(
-        f"  eval_mega: {n} main-path chunks, {mega_ms:.4f} ms/launch "
-        f"(plain {mega_plain:.3f} ms); sig_eval {sig_ms:.4f} ms "
-        f"(plain {sig_plain:.3f} ms)"
+        f"  eval_mega: {n} main-path-shaped launches, mean {mega['ms']:.4f} ms/launch "
+        f"(plain {mega['plain_ms']:.3f} ms); sig_eval {sig_ms:.4f} ms on "
+        f"{sig_blocks} blocks (global row space {sig_global:.4f} ms; plain "
+        f"{sig_plain:.3f} ms)"
     )
     return {
-        "eval_mega": dict(ms=mega_ms, plain_ms=mega_plain, bytes=main_bytes / n),
+        "eval_mega": mega,
         "sig_eval": dict(ms=sig_ms, plain_ms=sig_plain, bytes=sig_bytes),
     }
 
@@ -356,6 +398,27 @@ def adder_bits(rng, width: int):
     return np.concatenate([a, b]), out
 
 
+@contextlib.contextmanager
+def wide_queries(A, suite):
+    """Count the W=512-tier (k = 11..14) queries `aig_sim.eval_tts` is
+    given, per circuit of ``suite``.  Yields ``{circuit: count}``."""
+    names = {rtl.name: key for key, rtl in suite.items()}
+    counts = {key: 0 for key in suite}
+    real = A.eval_tts
+
+    def counting(aig, items, *args, **kw):
+        n = sum(1 for _, sup in items if A._TIERS[1][0] < len(sup) <= A.MAX_VARS)
+        key = names.get(aig.name, aig.name)
+        counts[key] = counts.get(key, 0) + n
+        return real(aig, items, *args, **kw)
+
+    A.eval_tts = counting
+    try:
+        yield counts
+    finally:
+        A.eval_tts = real
+
+
 def phase_main(dev, rng):
     import numpy as np
     import torch
@@ -368,15 +431,17 @@ def phase_main(dev, rng):
     from repro_torch.kernels import ops
 
     suite = C.benchmark_suite("default")
-    for d in (A.LAUNCHES, K.LAUNCHES):
+    for d in (A.LAUNCHES, A.TIER_LAUNCHES, K.LAUNCHES):
         for k in d:
             d[k] = 0
     t0 = time.time()
     # Aig.truth_table runs in the front half only as eval_tts's host path
-    # for supports wider than DEVICE_MAX_VARS.
+    # for supports wider than the device takes: none on the card.
     host_fns = [(A, "eval_tts"), (A, "node_signatures"), (A, "_cone_members"),
-                (A, "_pack_mega_chunks"), (Aig, "truth_table")]
-    with spans([(A, "eval_mega"), (A, "sig_eval")], host_fns) as front:
+                (A, "_pack_mega"), (Aig, "truth_table")]
+    with wide_queries(A, suite) as wide, spans(
+        [(A, "eval_mega"), (A, "sig_eval")], host_fns
+    ) as front:
         cha = characterize_suite(suite, backend="device", device=dev)
     t1 = time.time()
     res = explore_suite(suite, cha=cha, device=dev)
@@ -405,15 +470,20 @@ def phase_main(dev, rng):
     launches = {**A.LAUNCHES, **K.LAUNCHES}
     print(
         f"main path: front half {t1 - t0:.3f} s, back half {t2 - t1:.3f} s, "
-        f"end check {t3 - t2:.3f} s; launches {launches}"
+        f"end check {t3 - t2:.3f} s; launches {launches}; eval_mega launches per "
+        f"word tier {A.TIER_LAUNCHES}"
     )
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
+    print("wide-tier (k = 11..14) queries per circuit on the main path: " + json.dumps(wide))
+    check(A.TIER_LAUNCHES[512] > 0, "no W=512 eval_mega launch on the main path")
+    n_tt = len(front.get("truth_table", []))
+    check(n_tt == 0, f"{n_tt} host Aig.truth_table calls on the card's main path")
     k1 = {k: device_s(front.get(k, [])) for k in ("eval_mega", "sig_eval")}
     k1_s = sum(k1.values())
     host = {name: sum(front.get(name, [])) for _, name in host_fns}
     sim_s = host["eval_tts"] + host["node_signatures"]
-    rest_s = sim_s - k1_s - host["_cone_members"] - host["_pack_mega_chunks"]
+    rest_s = sim_s - k1_s - host["_cone_members"] - host["_pack_mega"]
     rest_s -= host["truth_table"]
     front_s = t1 - t0
     print(
@@ -422,10 +492,9 @@ def phase_main(dev, rng):
         f"{k1['eval_mega']:.4f} s, sig_eval {k1['sig_eval']:.4f} s); inside the "
         f"aig_sim entry points ({sim_s:.3f} s): cone membership "
         f"{host['_cone_members']:.3f} s, chunk packing "
-        f"{host['_pack_mega_chunks']:.3f} s, host truth tables for k > "
-        f"{A.DEVICE_MAX_VARS} {host['truth_table']:.3f} s, copies/syncs/"
-        f"unpacking {rest_s:.3f} s; transforms host code {front_s - sim_s:.3f} s; "
-        f"K1 busy share {k1_s / front_s:.6f}"
+        f"{host['_pack_mega']:.3f} s, host truth tables {host['truth_table']:.3f} s "
+        f"({n_tt} calls), copies/syncs/unpacking {rest_s:.3f} s; transforms host "
+        f"code {front_s - sim_s:.3f} s; K1 busy share {k1_s / front_s:.6f}"
     )
     print(f"end check: K2 {k2_s:.4f} s on the card of {t3 - t2:.3f} s")
     print(f"adder winner on K2: sums and carries correct for {N_VECTORS} random operands")
@@ -443,11 +512,16 @@ def phase_main(dev, rng):
         )
     print("winners equal the scalar python back half for all 9 circuits")
 
-    # Front-half parity on the smallest default circuit.
-    adder = {"adder": suite["adder"]}
-    py = characterize_suite(adder, backend="python", n_jobs=1, device=dev)
-    check(py["adder"] == cha["adder"], "adder AigStats: device != python backend")
-    print(f"adder AigStats: device backend == python backend ({len(py['adder'])} recipes)")
+    # Front-half parity on the smallest default circuit, and on log2,
+    # whose resub sends wide (k = 11..14) queries through K1.
+    for name in ("adder", "log2"):
+        t = time.time()
+        py = characterize_suite({name: suite[name]}, backend="python", n_jobs=1, device=dev)
+        check(py[name] == cha[name], f"{name} AigStats: device != python backend")
+        print(
+            f"{name} AigStats: device backend == python backend ({len(py[name])} "
+            f"recipes; python backend {time.time() - t:.3f} s)"
+        )
     return suite, cha, netlists, vectors, launches, t1 - t0, t2 - t1
 
 
@@ -490,16 +564,6 @@ def phase_sweep(dev, suite, cha):
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def global_register_file(K):
-    """Make `cim_logic.cim_call` take its global-memory register file."""
-    saved, K.MAX_SHARED_BYTES = K.MAX_SHARED_BYTES, 0
-    try:
-        yield
-    finally:
-        K.MAX_SHARED_BYTES = saved
-
-
 def phase_k2(dev, netlists, vectors):
     import torch
     from repro_torch.kernels import cim_logic as K
@@ -519,7 +583,7 @@ def phase_k2(dev, netlists, vectors):
         same("cim", got, want, f"K2 on {name}'s winner")
         # The global-memory register file, which netlists too tall for
         # shared memory take, held against the plain version as well.
-        with global_register_file(K):
+        with global_memory(K):
             glob = K.cim_call(*args, **kw)
         same("cim", glob, want, f"K2 (global register file) on {name}'s winner")
         # instructions in; PI, const0 and const1 rows in; PO rows out
@@ -528,7 +592,7 @@ def phase_k2(dev, netlists, vectors):
         calls.append((args, kw, moved))
     n = len(calls)
     ms = cuda_ms(lambda: [K.cim_call(*a, **kw) for a, kw, _ in calls], 10) / n
-    with global_register_file(K):
+    with global_memory(K):
         glob_ms = cuda_ms(lambda: [K.cim_call(*a, **kw) for a, kw, _ in calls], 10) / n
     plain = cuda_ms(
         lambda: [

@@ -12,32 +12,35 @@ module evaluates them as *batched bit-packed simulation*:
     *wave-packed* variant (independent same-level nodes grouped so one
     step evaluates a whole wave) and the per-node AIG levels.
   * `eval_tts` evaluates a *batch* of (roots, support) queries.  Each
-    word-tier's queries are assembled into chunked **mega-programs**:
-    every query's cone is laid out in a shared flat row space (row 0 =
-    const0, then per query its support rows — pinned to elementary truth
-    tables, exactly `Aig.truth_table`'s semantics — followed by its cone
-    rows), and the concatenated instructions are wave-packed by global
-    AIG level.  Device work is therefore proportional to the *useful*
-    cone work, not batch x whole-graph.
+    word tier's queries are packed into one batch of **mega-program**
+    chunks (`_pack_mega`): every query's cone is laid out in its chunk's
+    flat row space (row 0 = const0, then per query its support rows —
+    pinned to elementary truth tables, exactly `Aig.truth_table`'s
+    semantics — followed by its cone rows), and each chunk's
+    instructions are wave-packed by AIG level.  Device work is therefore
+    proportional to the *useful* cone work, not batch x whole-graph.
   * `node_signatures` runs the whole-graph wave stream over random
     uint64 pattern words (viewed as uint32 lanes) — bit-identical to
     ``transforms._node_signatures``.
 
-Both evaluations go through `eval_mega` / `sig_eval`: on a CUDA tensor
-they launch the hand-written kernel K1 (``csrc/aig_sim.cu``), on a CPU
-tensor they run the plain torch version beside it (`eval_mega_plain` /
-`sig_eval_plain`: a loop over waves, vectorized within each wave).
-Planes travel as int32 in torch (torch's CPU build lacks ``~``/``>>``
-for uint32); uint32 lanes are reinterpreted with numpy ``.view`` at the
-host boundary.  ``LAUNCHES`` counts kernel launches per entry point.
+Both evaluations go through `eval_mega` / `sig_eval`, one call per word
+tier (one per graph for signatures), with one upload of the packed
+operands and one read-back.  On a CUDA tensor they launch the
+hand-written kernel K1 (``csrc/aig_sim.cu``: one block per chunk and
+word-column slice, rows in shared memory), on a CPU tensor they run the
+plain torch version beside it (`eval_mega_plain` / `sig_eval_plain`: a
+loop over chunks and waves, vectorized within each wave).  Planes travel
+as int32 in torch (torch's CPU build lacks ``~``/``>>`` for uint32);
+uint32 lanes are reinterpreted with numpy ``.view`` at the host
+boundary.  ``LAUNCHES`` counts kernel launches per entry point and
+``TIER_LAUNCHES`` the ``eval_mega`` launches per word tier.
 
 Shape discipline: queries bucket into word tiers (k <= 5 / 10 / 14
-support vars -> 1 / 32 / 512 uint32 words); mega-program chunks are
-bounded by a per-tier instruction budget.  Queries wider than
-`DEVICE_MAX_VARS` take the host bigint path — at 512 words per table
-CPython's limb loops already run at memory speed.  The W=512 tier stays
-in the kernel's contract (``_MEGA_WAVE`` / ``_MEGA_BUDGET`` carry it)
-for callers that pack such chunks directly.
+support vars -> 1 / 32 / 512 uint32 words); chunks are bounded by a
+per-tier row budget sized for shared memory.  On CUDA every query of up
+to `MAX_VARS` support vars goes through K1, as the reference's Pallas
+engine does; on the CPU queries wider than ``DEVICE_MAX_VARS["cpu"]``
+take the host bigint path, as the reference's jnp engine does.
 """
 
 from __future__ import annotations
@@ -57,23 +60,41 @@ from . import build
 
 #: Kernel launches per K1 entry point (plain-version calls do not count).
 LAUNCHES = {"eval_mega": 0, "sig_eval": 0}
+#: ``eval_mega`` launches per word tier (words per truth table).
+TIER_LAUNCHES = {1: 0, 32: 0, 512: 0}
 
 # (max vars, uint32 words) shape tiers for truth-table queries.  A query
 # with k support vars lands in the smallest tier with 32 * words >= 2**k;
 # its table occupies the low 2**k bits and the host masks the rest off.
 _TIERS: tuple[tuple[int, int], ...] = ((5, 1), (10, 32), (14, 512))
 
-#: Mega-program shape knobs per word tier: instructions per wave and the
-#: per-chunk instruction budget.  Wider waves amortize the per-wave
-#: barrier; the budget bounds the row-space scratch.  ``eval_tts`` never
-#: packs the 512-word tier (see `DEVICE_MAX_VARS`); its entry serves
-#: direct callers of `_eval_mega_tier` that check the kernel at W=512.
-_MEGA_WAVE = {1: 1024, 32: 256, 512: 16}
-_MEGA_BUDGET = {1: 1 << 17, 32: 1 << 14, 512: 1 << 10}
-#: Queries with more support vars than this take the host bigint path:
-#: at 512 words per table, CPython's big-int AND/XOR (a C loop over
-#: limbs) is already at memory speed and the device round trip cannot win.
-DEVICE_MAX_VARS = 10
+#: Mega-program shape knobs per word tier: the widest wave (the packer
+#: picks each batch's wave width up to it), the word columns one block
+#: owns (``cw``), and the per-chunk row budget.  A block holds its
+#: chunk's rows x cw words plus a double buffer of two waves in shared
+#: memory: W=1 8 K rows x 1 word + 32 KB, W=32 8 K x 4 + 8 KB, W=512
+#: 2 K x 8 + 4 KB, all well inside 227 KB; chunks cut to spread a launch
+#: (`_TARGET_BLOCKS`) need a third of that or less, so two or three
+#: blocks share an SM.  Wave width x cw is at most 1024 (slot, column)
+#: pairs, one pass of a block's threads.
+_MEGA_WAVE = {1: 1024, 32: 256, 512: 128}
+_MEGA_SLICE = {1: 1, 32: 4, 512: 8}
+_MEGA_BUDGET = {1: 8192, 32: 8192, 512: 2048}
+#: Blocks one launch aims for (one per SM of the H100), and the smallest
+#: row budget the packer cuts a chunk to on the way.
+_TARGET_BLOCKS = 132
+_MIN_BUDGET = 512
+#: Widest word-column slice of `sig_eval`; halved until the graph's rows
+#: fit shared memory.
+_SIG_SLICE = 2
+#: Shared memory one block may use on the H100 (227 KB).  A launch whose
+#: blocks need more runs K1's global-memory row space.
+MAX_SHARED_BYTES = 232_448
+#: Widest support `eval_tts` sends to the device engine, per device type.
+#: On CUDA that is every tier (as the reference's Pallas engine does);
+#: the plain torch version on the CPU stops at 10, as the reference's jnp
+#: engine does.  Wider queries take the host bigint path.
+DEVICE_MAX_VARS = {"cpu": 10, "cuda": 14}
 
 MAX_VARS = _TIERS[-1][0]
 
@@ -202,6 +223,15 @@ def _tier_for(k: int) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 # K1 and its plain torch version
 # ---------------------------------------------------------------------------
+#
+# Batched contract, shared by both entry points: ``waves`` (L, M, 4)
+# holds every chunk's waves back to back, the row operand (``pin_rows``
+# (N,) or ``vals0`` (N, W)) every chunk's rows back to back, and ``meta``
+# (C, 6) for ``eval_mega`` / (C, 4) for ``sig_eval`` says what chunk c
+# owns: ``[wave_off, wave_cnt, row_base, row_cnt, root_off, root_cnt]``.
+# Row indices inside the waves and ``rootp`` are local to the chunk; a
+# chunk's padding slots write its last row.  A one-chunk batch
+# ``meta = [[0, L, 0, N, 0, Q]]`` is the reference jnp engine's contract.
 
 
 def _wave_step(vals: torch.Tensor, ins: torch.Tensor) -> None:
@@ -217,33 +247,37 @@ def _wave_step(vals: torch.Tensor, ins: torch.Tensor) -> None:
     vals[o] = va & vb
 
 
-def eval_mega_plain(waves, pin_rows, elem, rootp) -> torch.Tensor:
+def eval_mega_plain(waves, pin_rows, elem, rootp, meta) -> torch.Tensor:
     """Plain torch version of K1's ``eval_mega`` contract.
 
-    waves (L,M,4) i32 over a flat row space; pin_rows (N,) i32
-    var-index-or--1; elem (K,W) i32; rootp (Q,) i32 packs each root
-    query as ``row << 1 | phase``.  Returns (Q,W) i32.  Support rows
-    hold elementary tables and are never written (cone membership
+    Per chunk: support rows (``pin_rows`` var index >= 0) hold elementary
+    tables from ``elem`` (K, W), every other row 0; the chunk's waves run
+    in order; ``rootp`` packs each root query as ``row << 1 | phase``.
+    Returns (Q, W) i32.  Support rows are never written (cone membership
     excludes pinned nodes), so each step is gather-AND-scatter.
     """
-    k = elem.shape[0]
-    vals = torch.where(
-        (pin_rows >= 0)[:, None],
-        elem[pin_rows.clamp(0, k - 1).long()],
-        torch.zeros((), dtype=torch.int32, device=elem.device),
-    )
-    for ins in waves:
-        _wave_step(vals, ins)
-    phase = -(rootp & 1)
-    return vals[(rootp >> 1).long()] ^ phase[:, None]
+    k, w = elem.shape
+    out = torch.zeros((rootp.shape[0], w), dtype=torch.int32, device=elem.device)
+    zero = torch.zeros((), dtype=torch.int32, device=elem.device)
+    for wave_off, wave_cnt, row_base, row_cnt, root_off, root_cnt in meta.tolist():
+        pin = pin_rows[row_base : row_base + row_cnt]
+        vals = torch.where((pin >= 0)[:, None], elem[pin.clamp(0, k - 1).long()], zero)
+        for ins in waves[wave_off : wave_off + wave_cnt]:
+            _wave_step(vals, ins)
+        rp = rootp[root_off : root_off + root_cnt]
+        out[root_off : root_off + root_cnt] = vals[(rp >> 1).long()] ^ (-(rp & 1))[:, None]
+    return out
 
 
-def sig_eval_plain(waves, vals0) -> torch.Tensor:
-    """Plain torch version of K1's ``sig_eval`` contract: waves (L,M,4)
-    i32; vals0 (N,W) i32 with PI rows pre-placed -> (N,W) i32."""
+def sig_eval_plain(waves, vals0, meta) -> torch.Tensor:
+    """Plain torch version of K1's ``sig_eval`` contract: each chunk's
+    rows of ``vals0`` (N, W) i32, PI rows pre-placed, run through its
+    waves -> (N, W) i32."""
     vals = vals0.clone()
-    for ins in waves:
-        _wave_step(vals, ins)
+    for wave_off, wave_cnt, row_base, row_cnt in meta.tolist():
+        rows = vals[row_base : row_base + row_cnt]  # a view: updated in place
+        for ins in waves[wave_off : wave_off + wave_cnt]:
+            _wave_step(rows, ins)
     return vals
 
 
@@ -259,21 +293,49 @@ def _check(t: torch.Tensor, name: str, ndim: int, device: torch.device) -> None:
 
 
 def _check_rows(a: np.ndarray, n_rows: int, name: str) -> None:
-    """Row indices the kernel dereferences must lie in [0, n_rows).
-
-    Checked on the host arrays before they are uploaded: on CUDA tensors
-    the check would cost a device sync per operand on every launch."""
+    """Row indices the kernel dereferences must lie in [0, n_rows)."""
     if a.size and (int(a.min()) < 0 or int(a.max()) >= n_rows):
         raise ValueError(f"{name} holds a row index outside [0, {n_rows})")
 
 
-def _check_mega_rows(waves: np.ndarray, n_rows: int, rootp: np.ndarray) -> None:
-    _check_rows(waves[..., 1:], n_rows, "waves")
-    _check_rows(rootp >> 1, n_rows, "rootp")
+def _check_chunks(
+    waves: np.ndarray,
+    meta: np.ndarray,
+    n_rows: int,
+    max_rows: int,
+    rootp: np.ndarray | None = None,
+) -> None:
+    """Every range of ``meta`` must lie inside its operand, every chunk
+    fit ``max_rows``, and every row index a chunk's waves or roots
+    dereference lie inside that chunk's rows.
+
+    Checked on the host arrays before they are uploaded: on CUDA tensors
+    the check would cost a device sync per operand on every launch."""
+    ncol = 6 if rootp is not None else 4
+    if meta.ndim != 2 or meta.shape[1] != ncol:
+        raise ValueError(f"meta must be (C, {ncol}), got {meta.shape}")
+    if waves.ndim != 3 or waves.shape[2] != 4:
+        raise ValueError(f"waves must be (L, M, 4), got {waves.shape}")
+    m = meta.astype(np.int64)
+    if m.size and int(m.min()) < 0:
+        raise ValueError("meta holds a negative offset or count")
+    spans = [(0, len(waves), "waves"), (2, n_rows, "rows")]
+    if rootp is not None:
+        spans.append((4, len(rootp), "roots"))
+    for col, limit, what in spans:
+        if m.size and int((m[:, col] + m[:, col + 1]).max()) > limit:
+            raise ValueError(f"meta: a chunk's {what} run past {limit}")
+    if m.size and (int(m[:, 3].min()) < 1 or int(m[:, 3].max()) > max_rows):
+        raise ValueError(f"meta: a chunk's rows outside [1, max_rows={max_rows}]")
+    for row in m:
+        cnt = int(row[3])
+        _check_rows(waves[row[0] : row[0] + row[1], :, 1:], cnt, "waves")
+        if rootp is not None:
+            _check_rows(rootp[row[4] : row[4] + row[5]] >> 1, cnt, "rootp")
 
 
-def _p(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _p(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream() -> ctypes.c_void_p:
@@ -284,70 +346,126 @@ def _stream() -> ctypes.c_void_p:
 def _k1():
     lib = build.load("aig_sim")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.k1_eval_mega.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci, vp, ci, vp, vp, vp]
+    lib.k1_shared_bytes.argtypes = [ci, ci, ci]
+    lib.k1_shared_bytes.restype = ctypes.c_long
+    lib.k1_eval_mega.argtypes = [vp, ci, vp, ci, ci, ci, ci, vp, vp, ci, vp, ci, vp, vp, vp]
     lib.k1_eval_mega.restype = ci
-    lib.k1_sig_eval.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
+    lib.k1_sig_eval.argtypes = [vp, ci, vp, ci, ci, ci, ci, vp, ci, ci, vp, vp]
     lib.k1_sig_eval.restype = ci
     return lib
 
 
-def eval_mega(waves, pin_rows, elem, rootp) -> torch.Tensor:
-    """K1 ``eval_mega``: launches the CUDA kernel for CUDA tensors, runs
-    `eval_mega_plain` for CPU tensors (same contract).
+def _shift(cw: int) -> int:
+    if cw < 1 or cw & (cw - 1):
+        raise ValueError(f"column slice {cw} is not a power of two")
+    return cw.bit_length() - 1
 
-    The launch path holds no device sync: on CUDA tensors the row indices
-    are the caller's to check (`_check_mega_rows` on the host arrays
-    before upload, as `_eval_mega_tier` does); on CPU tensors the wrapper
-    checks them itself."""
-    dev = waves.device
-    if dev.type == "cpu":
-        _check_mega_rows(waves.numpy(), pin_rows.shape[0], rootp.numpy())
-        return eval_mega_plain(waves, pin_rows, elem, rootp)
-    if dev.type != "cuda":
-        raise ValueError(f"eval_mega: unsupported device {dev}")
+
+def _fits_shared(wave_m: int, max_rows: int, cw: int) -> bool:
+    """Whether one block's rows x cw words and instruction double buffer
+    fit `MAX_SHARED_BYTES` (decides K1's row-space variant)."""
+    return _k1().k1_shared_bytes(wave_m, max_rows, _shift(cw)) <= MAX_SHARED_BYTES
+
+
+def _check_launch(waves: torch.Tensor, tensors: dict, dev: torch.device) -> None:
     _check(waves, "waves", 3, dev)
-    _check(pin_rows, "pin_rows", 1, dev)
-    _check(elem, "elem", 2, dev)
-    _check(rootp, "rootp", 1, dev)
     if waves.shape[2] != 4:
         raise ValueError(f"waves must be (L, M, 4), got {tuple(waves.shape)}")
-    n_waves, wave_m = waves.shape[0], waves.shape[1]
+    if waves.data_ptr() % 16:
+        raise ValueError("waves must be 16-byte aligned (read as int4)")
+    for name, (t, ndim) in tensors.items():
+        _check(t, name, ndim, dev)
+
+
+def eval_mega(waves, pin_rows, elem, rootp, meta, cw: int, max_rows: int) -> torch.Tensor:
+    """K1 ``eval_mega`` over a batch of chunks: launches the CUDA kernel
+    for CUDA tensors (one block per chunk and ``cw``-word column slice),
+    runs `eval_mega_plain` for CPU tensors (same contract).
+
+    ``max_rows`` bounds every chunk's ``row_cnt`` and sizes the blocks'
+    shared memory; a batch whose blocks do not fit `MAX_SHARED_BYTES`
+    runs on a global-memory row space instead.  The launch path holds no
+    device sync: on CUDA tensors ``meta`` and the row indices are the
+    caller's to check (`_check_chunks` on the host arrays before upload,
+    as `_eval_mega_tier` does); on CPU tensors the wrapper checks them."""
+    dev = waves.device
+    if dev.type == "cpu":
+        _check_chunks(waves.numpy(), meta.numpy(), pin_rows.shape[0], max_rows, rootp.numpy())
+        return eval_mega_plain(waves, pin_rows, elem, rootp, meta)
+    if dev.type != "cuda":
+        raise ValueError(f"eval_mega: unsupported device {dev}")
+    _check_launch(
+        waves,
+        {"pin_rows": (pin_rows, 1), "elem": (elem, 2), "rootp": (rootp, 1), "meta": (meta, 2)},
+        dev,
+    )
     k, w = elem.shape
-    n_rows, n_q = pin_rows.shape[0], rootp.shape[0]
-    scratch = torch.empty((n_rows, w), dtype=torch.int32, device=dev)
-    out = torch.empty((n_q, w), dtype=torch.int32, device=dev)
+    shift = _shift(cw)
+    wave_m = waves.shape[1]
+    out = torch.empty((rootp.shape[0], w), dtype=torch.int32, device=dev)
+    grows = None
+    if not _fits_shared(wave_m, max_rows, cw):
+        grows = torch.empty((pin_rows.shape[0], w), dtype=torch.int32, device=dev)
     rc = _k1().k1_eval_mega(
-        _p(waves), n_waves, wave_m, _p(pin_rows), n_rows, _p(elem), k, w,
-        _p(rootp), n_q, _p(scratch), _p(out), _stream(),
+        _p(waves), wave_m, _p(meta), meta.shape[0], -(-w // cw), shift, w,
+        _p(pin_rows), _p(elem), k, _p(rootp), max_rows, _p(grows), _p(out), _stream(),
     )
     build.check(rc, "k1_eval_mega")
     LAUNCHES["eval_mega"] += 1
+    TIER_LAUNCHES[w] = TIER_LAUNCHES.get(w, 0) + 1
     return out
 
 
-def sig_eval(waves, vals0) -> torch.Tensor:
-    """K1 ``sig_eval``: launches the CUDA kernel for CUDA tensors, runs
-    `sig_eval_plain` for CPU tensors (same contract).  Row indices are
-    checked as in `eval_mega`: by the caller on CUDA, here on the CPU."""
+def _sig_cw(wave_m: int, max_rows: int) -> tuple[int, bool]:
+    """`sig_eval`'s column slice and whether its rows sit in shared
+    memory: the widest slice up to `_SIG_SLICE` that fits, else
+    `_SIG_SLICE` on the global-memory row space."""
+    cw = _SIG_SLICE
+    while cw >= 1:
+        if _fits_shared(wave_m, max_rows, cw):
+            return cw, True
+        cw //= 2
+    return _SIG_SLICE, False
+
+
+def sig_eval(waves, vals0, meta, max_rows: int) -> torch.Tensor:
+    """K1 ``sig_eval`` over a batch of chunks: launches the CUDA kernel
+    for CUDA tensors, runs `sig_eval_plain` for CPU tensors (same
+    contract).  The wrapper picks the column slice and row-space variant
+    by size (`_sig_cw`); ``meta`` and row indices are checked as in
+    `eval_mega`: by the caller on CUDA, here on the CPU."""
     dev = waves.device
     if dev.type == "cpu":
-        _check_rows(waves.numpy()[..., 1:], vals0.shape[0], "waves")
-        return sig_eval_plain(waves, vals0)
+        _check_chunks(waves.numpy(), meta.numpy(), vals0.shape[0], max_rows)
+        return sig_eval_plain(waves, vals0, meta)
     if dev.type != "cuda":
         raise ValueError(f"sig_eval: unsupported device {dev}")
-    _check(waves, "waves", 3, dev)
-    _check(vals0, "vals0", 2, dev)
-    if waves.shape[2] != 4:
-        raise ValueError(f"waves must be (L, M, 4), got {tuple(waves.shape)}")
+    _check_launch(waves, {"vals0": (vals0, 2), "meta": (meta, 2)}, dev)
     n_rows, w = vals0.shape
+    wave_m = waves.shape[1]
+    cw, shared = _sig_cw(wave_m, max_rows)
     out = torch.empty((n_rows, w), dtype=torch.int32, device=dev)
     rc = _k1().k1_sig_eval(
-        _p(waves), waves.shape[0], waves.shape[1], _p(vals0), n_rows, w,
-        _p(out), _stream(),
+        _p(waves), wave_m, _p(meta), meta.shape[0], -(-w // cw), _shift(cw), w,
+        _p(vals0), max_rows, int(not shared), _p(out), _stream(),
     )
     build.check(rc, "k1_sig_eval")
     LAUNCHES["sig_eval"] += 1
     return out
+
+
+def upload(device: torch.device, *arrays: np.ndarray) -> list[torch.Tensor]:
+    """Copy int32 host arrays to ``device`` as one buffer, in one copy,
+    and return a view of it per array, in that array's shape.  The first
+    array starts the buffer, so it keeps the allocation's alignment (K1
+    reads ``waves`` as 16-byte int4)."""
+    flat = np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.int32) for a in arrays])
+    buf = torch.from_numpy(flat).to(device)
+    views, o = [], 0
+    for a in arrays:
+        views.append(buf[o : o + a.size].view(a.shape))
+        o += a.size
+    return views
 
 
 # ---------------------------------------------------------------------------
@@ -397,138 +515,178 @@ def _cone_members(
 
 
 @dataclasses.dataclass(frozen=True)
-class MegaChunk:
-    """One packed mega-program: the operands of `eval_mega` (numpy, host)
-    plus what the host needs to unpack its rows."""
+class MegaBatch:
+    """One word tier's queries packed as the operands of one `eval_mega`
+    launch (numpy, host), plus what the host needs to unpack them."""
 
-    waves: np.ndarray  # (L, M, 4) int32
-    pin_rows: np.ndarray  # (N,) int32
-    rootp: np.ndarray  # (Q_pad,) int32
-    positions: list[int]  # chunk entries: positions into the tier's idxs
-    qoff: np.ndarray  # (n_items + 1,) root-row offset of each item
+    waves: np.ndarray  # (L, M, 4) int32, every chunk's waves back to back
+    pin_rows: np.ndarray  # (N,) int32, every chunk's pin map back to back
+    rootp: np.ndarray  # (Q,) int32
+    meta: np.ndarray  # (C, 6) int32, see the batched contract above
+    cw: int  # word columns per block
+    qoff: np.ndarray  # (n_queries + 1,) output row of each query's first root
+
+    @property
+    def max_rows(self) -> int:
+        return int(self.meta[:, 3].max())
+
+    def operands(self, device: torch.device, elem: torch.Tensor) -> tuple:
+        """`eval_mega`'s positional operands on ``device`` (one upload)."""
+        waves, pin_rows, rootp, meta = upload(
+            device, self.waves, self.pin_rows, self.rootp, self.meta
+        )
+        return waves, pin_rows, elem, rootp, meta, self.cw, self.max_rows
 
 
-def _pack_mega_chunks(
+def _chunk_bounds(sizes: np.ndarray, budget: int) -> np.ndarray:
+    """Greedy chunking: a chunk takes queries in order while their rows
+    fit ``budget``, and always at least one.  Returns the chunk
+    boundaries as query positions (first 0, last ``len(sizes)``)."""
+    cum = np.cumsum(sizes)
+    bounds = [0]
+    while bounds[-1] < len(sizes):
+        i = bounds[-1]
+        base = int(cum[i - 1]) if i else 0
+        j = int(np.searchsorted(cum, base + budget, side="right"))
+        bounds.append(max(j, i + 1))
+    return np.asarray(bounds, dtype=np.int64)
+
+
+def _pack_mega(
     aig: Aig,
     prog: AigProgram,
     items: Sequence[tuple[Sequence[int], Sequence[int]]],
     idxs: list[int],
     w: int,
     mem: np.ndarray,
-) -> list[MegaChunk]:
-    """Pack one word tier's queries into budget-bounded mega-programs.
+) -> MegaBatch:
+    """Pack one word tier's queries into one batch of mega-program chunks.
 
-    Each chunk concatenates the per-query cone programs into one flat
-    row space (row 0 = const0, then per query: k support rows pinned to
-    elementary tables followed by its cone rows in topo order).
-    Instructions are wave-packed by global AIG level (fanins always have
+    Queries fill chunks in order up to a row budget: the tier's
+    `_MEGA_BUDGET`, cut so the launch spreads over `_TARGET_BLOCKS`
+    blocks where the queries allow.  Each chunk's row space is row 0 =
+    const0, then per query its k support rows (pinned to elementary
+    tables) followed by its cone rows in topo order, then the scratch row
+    that padding slots write.  A query's node -> row lookup is sparse:
+    sorted keys ``query * n_nodes + node``, fanins and roots found by
+    ``searchsorted``; nodes outside a query's support and cone read row 0
+    (const0) — the python path would raise on such a read, and no caller
+    produces one (cones are closed over their supports).  Each chunk's
+    instructions are wave-packed by AIG level (fanins always have
     strictly smaller levels, and cross-query instructions are
-    independent), which keeps waves dense.
+    independent); the wave width is the mean (chunk, level) population
+    rounded up to a power of two, capped by `_MEGA_WAVE`.
     """
+    n = aig.n_nodes
     f0 = np.asarray(aig._f0, dtype=np.int64)
     f1 = np.asarray(aig._f1, dtype=np.int64)
-    sizes = mem.sum(axis=1).astype(np.int64)
-    budget = _MEGA_BUDGET[w]
-    wave_m = _MEGA_WAVE[w]
+    nq = len(idxs)
+    it = [items[i] for i in idxs]
+    k_b = np.fromiter((len(s) for _, s in it), dtype=np.int64, count=nq)
+    r_b = np.fromiter((len(r) for r, _ in it), dtype=np.int64, count=nq)
+    # Cone members in (query, node) order.  The flat scan of the dense
+    # (queries x nodes) matrix is several times faster than 2-D nonzero.
+    cone_keys = np.flatnonzero(mem)
+    b_idx, node_idx = np.divmod(cone_keys, n)
+    counts = np.bincount(b_idx, minlength=nq)
+    sizes = k_b + counts
 
-    chunks: list[list[int]] = []
-    cur: list[int] = []
-    acc = 0
-    for pos in range(len(idxs)):
-        s = int(sizes[pos])
-        if cur and acc + s > budget:
-            chunks.append(cur)
-            cur, acc = [], 0
-        cur.append(pos)
-        acc += s
-    if cur:
-        chunks.append(cur)
+    # Spread the tier over about one block per SM where the queries allow:
+    # cut the row budget down (not below _MIN_BUDGET) so the chunks times
+    # the column slices reach _TARGET_BLOCKS.
+    want_chunks = -(-_TARGET_BLOCKS // -(-w // _MEGA_SLICE[w]))
+    budget = min(_MEGA_BUDGET[w], max(_MIN_BUDGET, -(-int(sizes.sum()) // want_chunks)))
+    bounds = _chunk_bounds(sizes, budget)
+    n_chunks = len(bounds) - 1
+    chunk_of = np.repeat(np.arange(n_chunks), np.diff(bounds))
+    before = np.cumsum(sizes) - sizes  # tier rows before each query
+    first = before[bounds[:-1]]  # ... before each chunk's first query
+    row_base = 1 + before - first[chunk_of]  # chunk-local first row per query
+    row_cnt = 2 + np.add.reduceat(sizes, bounds[:-1])  # + const0, scratch
+    chunk_row = np.concatenate(([0], np.cumsum(row_cnt)[:-1]))
 
-    packed: list[MegaChunk] = []
-    for chunk in chunks:
-        if len(chunk) == len(idxs):
-            cm, counts = mem, sizes
-        else:
-            sel = np.asarray(chunk, dtype=np.int64)
-            cm, counts = mem[sel], sizes[sel]
-        it = [items[idxs[p]] for p in chunk]
-        k_b = np.array([len(s) for _, s in it], dtype=np.int64)
-        r_b = np.array([len(r) for r, _ in it], dtype=np.int64)
-        row_base = 1 + np.concatenate(([0], np.cumsum(k_b + counts)[:-1]))
-        n_rows = int(1 + (k_b + counts).sum())
-        n_rows_pad = _next_pow2(n_rows + 1, floor=10)
-        # Support rows: pinned to elementary tables via the pin map.
-        tot_k = int(k_b.sum())
-        sup_nodes = np.fromiter(
-            itertools.chain.from_iterable(s for _, s in it),
-            dtype=np.int64,
-            count=tot_k,
-        )
-        item_of_sup = np.repeat(np.arange(len(it)), k_b)
-        koff = np.concatenate(([0], np.cumsum(k_b)[:-1]))
-        var_idx = np.arange(tot_k) - np.repeat(koff, k_b)
-        sup_rows = row_base[item_of_sup] + var_idx
-        pin_rows = np.full(n_rows_pad, -1, dtype=np.int32)
-        pin_rows[sup_rows] = var_idx
-        # node -> row per query; unmapped nodes fall through to row 0
-        # (const0) — the python path would raise on such a read, and no
-        # caller produces one (cones are closed over their supports).
-        rowmap = np.zeros((len(it), aig.n_nodes), dtype=np.int32)
-        rowmap[item_of_sup, sup_nodes] = sup_rows
-        b_idx, node_idx = np.nonzero(cm)
-        n_waves = 0
-        if len(b_idx):
-            starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
-            local = np.arange(len(b_idx)) - np.repeat(starts, counts)
-            cone_rows = row_base[b_idx] + k_b[b_idx] + local
-            rowmap[b_idx, node_idx] = cone_rows
-            f0n = f0[node_idx]
-            f1n = f1[node_idx]
-            kind = (f0n & 1) | ((f1n & 1) << 1)
-            a_row = rowmap[b_idx, f0n >> 1]
-            b_row = rowmap[b_idx, f1n >> 1]
-            instr = np.stack([kind, a_row, b_row, cone_rows], axis=1).astype(
-                np.int32
-            )
-            # Wave-pack by global level, chopping each level into
-            # wave_m-wide groups (same-level instrs never depend).
-            lvn = prog.lv[node_idx]
-            order = np.argsort(lvn, kind="stable")
-            slv = lvn[order]
-            lstarts = np.searchsorted(slv, slv, side="left")
-            pos_in_lv = np.arange(len(order)) - lstarts
-            # (level, sub-group) keys are non-decreasing in `order`, so
-            # consecutive-difference cumsum numbers the waves directly.
-            key = slv * (len(order) + 1) + pos_in_lv // wave_m
-            wid = np.concatenate(([0], np.cumsum(np.diff(key) > 0)))
-            n_waves = int(wid[-1]) + 1
-        n_waves_pad = _next_pow2(n_waves + 1, floor=2)
-        waves = np.zeros((n_waves_pad, wave_m, 4), dtype=np.int32)
-        waves[:, :, 3] = n_rows_pad - 1  # no-op padding: scratch row <- 0
-        if len(b_idx):
-            waves[wid, pos_in_lv % wave_m] = instr[order]
-        # Root queries: one output row per root literal.
-        q_item = np.repeat(np.arange(len(it)), r_b)
-        root_lits = np.fromiter(
-            itertools.chain.from_iterable(r for r, _ in it),
-            dtype=np.int64,
-            count=int(r_b.sum()),
-        )
-        root_rows = rowmap[q_item, root_lits >> 1]
-        n_q = len(root_lits)
-        n_q_pad = _next_pow2(n_q, floor=6)
-        rootp = np.zeros(n_q_pad, dtype=np.int32)
-        rootp[:n_q] = (root_rows.astype(np.int64) << 1) | (root_lits & 1)
-        packed.append(
-            MegaChunk(
-                waves=waves,
-                pin_rows=pin_rows,
-                rootp=rootp,
-                positions=chunk,
-                qoff=np.concatenate(([0], np.cumsum(r_b))),
-            )
-        )
-    return packed
+    # Support rows: pinned to elementary tables via the pin map.
+    tot_k = int(k_b.sum())
+    sup_nodes = np.fromiter(
+        itertools.chain.from_iterable(s for _, s in it), dtype=np.int64, count=tot_k
+    )
+    q_of_sup = np.repeat(np.arange(nq), k_b)
+    koff = np.concatenate(([0], np.cumsum(k_b)[:-1]))
+    var_idx = np.arange(tot_k) - np.repeat(koff, k_b)
+    sup_rows = row_base[q_of_sup] + var_idx
+    pin_rows = np.full(int(row_cnt.sum()), -1, dtype=np.int32)
+    pin_rows[chunk_row[chunk_of[q_of_sup]] + sup_rows] = var_idx
+
+    # Cone rows, and the sparse (query, node) -> row lookup: the flat scan
+    # gave the cone keys ``query * n_nodes + node`` already sorted, and the
+    # support keys (a handful per query) are sorted once.
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    cone_rows = row_base[b_idx] + k_b[b_idx] + np.arange(len(b_idx)) - np.repeat(starts, counts)
+    sup_keys = q_of_sup * n + sup_nodes
+    sup_order = np.argsort(sup_keys, kind="stable")
+    tables = ((cone_keys, cone_rows), (sup_keys[sup_order], sup_rows[sup_order]))
+
+    def row_of(q: np.ndarray, node: np.ndarray) -> np.ndarray:
+        key = q * n + node
+        rows = np.zeros(len(key), dtype=np.int64)
+        for keys, vals in tables:  # a query's supports and cone are disjoint
+            if len(keys):
+                # The last of equal keys, as a dense map's last write would be.
+                i = np.maximum(np.searchsorted(keys, key, side="right") - 1, 0)
+                hit = keys[i] == key
+                rows[hit] = vals[i[hit]]
+        return rows
+
+    wave_m = 1
+    wave_chunk = np.zeros(0, dtype=np.int64)
+    if len(b_idx):
+        f0n, f1n = f0[node_idx], f1[node_idx]
+        instr = np.empty((len(b_idx), 4), dtype=np.int32)
+        instr[:, 0] = (f0n & 1) | ((f1n & 1) << 1)
+        instr[:, 1] = row_of(b_idx, f0n >> 1)
+        instr[:, 2] = row_of(b_idx, f1n >> 1)
+        instr[:, 3] = cone_rows
+        # Wave-pack by (chunk, level), chopping each group into
+        # wave_m-wide waves (same-level instructions never depend).
+        group = chunk_of[b_idx] * (int(prog.lv.max()) + 1) + prog.lv[node_idx]
+        order = np.argsort(group, kind="stable")
+        sg = group[order]
+        new_group = np.concatenate(([True], sg[1:] != sg[:-1]))
+        gstart = np.flatnonzero(new_group)
+        pos = np.arange(len(order)) - np.repeat(gstart, np.diff(np.append(gstart, len(order))))
+        wave_m = min(_MEGA_WAVE[w], _next_pow2(-(-len(order) // len(gstart)), floor=0))
+        slot = pos % wave_m
+        # A wave starts at each group's start and every wave_m slots after.
+        step = new_group | (slot == 0)
+        wid = np.cumsum(step) - 1
+        wave_chunk = chunk_of[b_idx[order[step]]]
+    wave_cnt = np.bincount(wave_chunk, minlength=n_chunks)
+    waves = np.zeros((len(wave_chunk), wave_m, 4), dtype=np.int32)
+    waves[:, :, 3] = (row_cnt[wave_chunk] - 1)[:, None]  # no-op padding: scratch <- 0
+    if len(b_idx):
+        waves[wid, slot] = instr[order]
+
+    # Root queries: one output row per root literal.
+    q_root = np.repeat(np.arange(nq), r_b)
+    root_lits = np.fromiter(
+        itertools.chain.from_iterable(r for r, _ in it), dtype=np.int64, count=int(r_b.sum())
+    )
+    rootp = ((row_of(q_root, root_lits >> 1) << 1) | (root_lits & 1)).astype(np.int32)
+    qoff = np.concatenate(([0], np.cumsum(r_b)))
+    meta = np.stack(
+        [
+            np.concatenate(([0], np.cumsum(wave_cnt)[:-1])),
+            wave_cnt,
+            chunk_row,
+            row_cnt,
+            qoff[bounds[:-1]],
+            np.diff(qoff[bounds]),
+        ],
+        axis=1,
+    ).astype(np.int32)
+    return MegaBatch(
+        waves=waves, pin_rows=pin_rows, rootp=rootp, meta=meta, cw=_MEGA_SLICE[w], qoff=qoff
+    )
 
 
 def _eval_mega_tier(
@@ -541,44 +699,37 @@ def _eval_mega_tier(
     results: list,
     device: torch.device,
 ) -> None:
-    """Run one word tier's queries as mega-programs through `eval_mega`
-    on ``device`` and unpack each query's truth tables into ``results``."""
+    """Run one word tier's queries as one `eval_mega` call on ``device``
+    (one upload, one launch, one read-back) and unpack each query's
+    truth tables into ``results``."""
     k_max = next(km for km, tw in _TIERS if tw == w)
-    for ch in _pack_mega_chunks(aig, prog, items, idxs, w, mem):
-        _check_mega_rows(ch.waves, len(ch.pin_rows), ch.rootp)
-        with build.device_faults("eval_mega", device):
-            out = eval_mega(
-                torch.from_numpy(ch.waves).to(device),
-                torch.from_numpy(ch.pin_rows).to(device),
-                _dev_elem(k_max, device),
-                torch.from_numpy(ch.rootp).to(device),
-            ).cpu().numpy().view(np.uint32)
-        n_q = int(ch.qoff[-1])
-        if w == 1:
-            flat = out[:n_q, 0].tolist()
-            for bi, p in enumerate(ch.positions):
-                idx = idxs[p]
-                roots, support = items[idx]
-                mask = (1 << (1 << len(support))) - 1
-                base = int(ch.qoff[bi])
-                results[idx] = tuple(
-                    flat[base + ri] & mask for ri in range(len(roots))
-                )
-        else:
-            buf = np.ascontiguousarray(out[:n_q]).tobytes()
-            nb = w * 4
-            for bi, p in enumerate(ch.positions):
-                idx = idxs[p]
-                roots, support = items[idx]
-                mask = (1 << (1 << len(support))) - 1
-                base = int(ch.qoff[bi])
-                results[idx] = tuple(
-                    int.from_bytes(
-                        buf[(base + ri) * nb : (base + ri + 1) * nb], "little"
-                    )
-                    & mask
-                    for ri in range(len(roots))
-                )
+    batch = _pack_mega(aig, prog, items, idxs, w, mem)
+    _check_chunks(batch.waves, batch.meta, len(batch.pin_rows), batch.max_rows, batch.rootp)
+    with build.device_faults("eval_mega", device):
+        ops = batch.operands(device, _dev_elem(k_max, device))
+        out = eval_mega(*ops).cpu().numpy().view(np.uint32)
+    qoff = batch.qoff.tolist()
+    if w == 1:
+        flat = out[:, 0].tolist()
+        for pos, idx in enumerate(idxs):
+            roots, support = items[idx]
+            mask = (1 << (1 << len(support))) - 1
+            base = qoff[pos]
+            results[idx] = tuple(flat[base + ri] & mask for ri in range(len(roots)))
+    else:
+        buf = out.tobytes()
+        nb = w * 4
+        for pos, idx in enumerate(idxs):
+            roots, support = items[idx]
+            n_pat = 1 << len(support)
+            need = (n_pat + 7) // 8  # bytes holding the low 2**k bits
+            mask = (1 << n_pat) - 1
+            base = qoff[pos]
+            results[idx] = tuple(
+                int.from_bytes(buf[(base + ri) * nb : (base + ri) * nb + need], "little")
+                & mask
+                for ri in range(len(roots))
+            )
 
 
 def _check_engine(engine: str) -> None:
@@ -602,24 +753,27 @@ def eval_tts(
     bit-identical to ``aig.truth_table(root_lit, support)`` (same
     LSB-first pattern order, same pinned-support semantics).
 
-    Queries with <= `DEVICE_MAX_VARS` support vars are bucketed by word
-    tier and evaluated as chunked *mega-programs* (see
-    `_pack_mega_chunks`) on ``device`` (default ``cuda``; raises without
-    a card); wider queries take the host bigint path.  ``members`` may
-    supply precomputed cone membership rows aligned with ``items``
-    (callers that already ran an MFFC sweep have them); otherwise
-    membership is derived here with the same descending scan.
+    Queries with up to ``DEVICE_MAX_VARS[device.type]`` support vars are
+    bucketed by word tier and evaluated, one `eval_mega` call per tier,
+    as batches of mega-program chunks (see `_pack_mega`) on ``device``
+    (default ``cuda``; raises without a card).  On CUDA that is every
+    query of up to `MAX_VARS`; wider queries (on the CPU, those above 10)
+    take the host bigint path.
+    ``members`` may supply precomputed cone membership rows aligned with
+    ``items`` (callers that already ran an MFFC sweep have them);
+    otherwise membership is derived here with the same descending scan.
     """
     _check_engine(engine)
     dev = resolve_device(device)
     if not items:
         return []
     prog = program if program is not None else compile_aig(aig)
+    max_vars = DEVICE_MAX_VARS[dev.type]
     results: list[tuple[int, ...] | None] = [None] * len(items)
     tiers: dict[int, list[int]] = {}
     for idx, (roots, support) in enumerate(items):
         k = len(support)
-        if k > DEVICE_MAX_VARS:
+        if k > max_vars:
             sup = list(support)
             results[idx] = tuple(aig.truth_table(rl, sup) for rl in roots)
         else:
@@ -659,7 +813,8 @@ def node_signatures(
 
     ``patterns``: (n_pis, n_words) uint64.  Returns (n_nodes, n_words)
     uint64, bit-identical to ``transforms._node_signatures`` (the uint64
-    words are simulated as pairs of uint32 lanes).
+    words are simulated as pairs of uint32 lanes).  The whole graph is
+    one chunk; K1 splits it over word-column slices.
     """
     _check_engine(engine)
     dev = resolve_device(device)
@@ -668,10 +823,9 @@ def node_signatures(
     n_words = patterns.shape[1]
     vals0 = np.zeros((prog.n_pad, 2 * n_words), dtype=np.uint32)
     vals0[1 : 1 + prog.n_pis] = patterns.view("<u4")
-    _check_rows(prog.waves[..., 1:], prog.n_pad, "waves")
+    meta = np.array([[0, len(prog.waves), 0, prog.n_pad]], dtype=np.int32)
+    _check_chunks(prog.waves, meta, prog.n_pad, prog.n_pad)
     with build.device_faults("sig_eval", dev):
-        out = sig_eval(
-            torch.from_numpy(prog.waves).to(dev),
-            torch.from_numpy(vals0.view(np.int32)).to(dev),
-        ).cpu().numpy()
+        waves, v0, meta_t = upload(dev, prog.waves, vals0.view(np.int32), meta)
+        out = sig_eval(waves, v0, meta_t, prog.n_pad).cpu().numpy()
     return np.ascontiguousarray(out[: prog.n_nodes]).view("<u8")

@@ -44,56 +44,74 @@ def random_aig(rng, n_pis, n_ands) -> Aig:
     return aig
 
 
+def k1_items(rng, aig, max_leaves_list=(4, 10, 14), n=40):
+    ands = list(range(aig.n_pis + 1, aig.n_nodes))
+    items = []
+    for max_leaves in max_leaves_list:
+        for node in rng.choice(ands, size=n, replace=False):
+            root = lit(int(node), int(rng.integers(2)))
+            items.append(((root,), T._reconv_cut(aig, int(node), max_leaves)))
+    return items
+
+
 @pytest.mark.cuda
-def test_k1_eval_mega_matches_plain_on_card(cuda_device):
-    """Every word tier (W = 1 / 32 / 512) through the kernel and the plain
-    version; the decoded tables also equal `Aig.truth_table`."""
+@pytest.mark.parametrize("row_space", ["shared", "global"])
+def test_k1_eval_mega_matches_plain_on_card(cuda_device, row_space, monkeypatch):
+    """Every word tier (W = 1 / 32 / 512) as a multi-chunk batch through
+    the kernel, with its rows in shared memory and forced into global
+    memory, against the plain version; the decoded tables also equal
+    `Aig.truth_table`.  One launch per tier."""
+    if row_space == "global":
+        monkeypatch.setattr(A, "MAX_SHARED_BYTES", 0)
+    for w in (1, 32, 512):
+        monkeypatch.setitem(A._MEGA_BUDGET, w, 256)
     rng = np.random.default_rng(14)
     aig = random_aig(rng, n_pis=14, n_ands=300)
     prog = A.compile_aig(aig)
-    ands = list(range(aig.n_pis + 1, aig.n_nodes))
-    items = []
-    for max_leaves in (4, 10, 14):
-        for n in rng.choice(ands, size=40, replace=False):
-            items.append(((lit(int(n), int(rng.integers(2))),), T._reconv_cut(aig, int(n), max_leaves)))
+    items = k1_items(rng, aig)
     tiers: dict[int, list[int]] = {}
     for i, (_, s) in enumerate(items):
         tiers.setdefault(A._tier_for(len(s))[1], []).append(i)
     assert set(tiers) == {1, 32, 512}
-    before = A.LAUNCHES["eval_mega"]
-    n_chunks = 0
+    before = dict(A.TIER_LAUNCHES), A.LAUNCHES["eval_mega"]
     for w, idxs in tiers.items():
         k_max = next(km for km, tw in A._TIERS if tw == w)
         mem = A._cone_members(aig, items, idxs)
-        for ch in A._pack_mega_chunks(aig, prog, items, idxs, w, mem):
-            ops_ = (
-                torch.from_numpy(ch.waves).to(cuda_device),
-                torch.from_numpy(ch.pin_rows).to(cuda_device),
-                A._dev_elem(k_max, cuda_device),
-                torch.from_numpy(ch.rootp).to(cuda_device),
-            )
-            got = A.eval_mega(*ops_)
-            torch.cuda.synchronize()
-            n_chunks += 1
-            assert torch.equal(got, A.eval_mega_plain(*ops_))
-            out = got.cpu().numpy().view(np.uint32)
-            for bi, p in enumerate(ch.positions):
-                roots, sup = items[idxs[p]]
-                mask = (1 << (1 << len(sup))) - 1
-                row = out[int(ch.qoff[bi])]
-                assert int.from_bytes(row.tobytes(), "little") & mask == aig.truth_table(roots[0], sup)
-            bad = ch.waves.copy()
-            bad[0, 0, 1] = len(ch.pin_rows)
-            with pytest.raises(ValueError, match="row index"):
-                A._check_mega_rows(bad, len(ch.pin_rows), ch.rootp)
-    assert A.LAUNCHES["eval_mega"] == before + n_chunks
+        batch = A._pack_mega(aig, prog, items, idxs, w, mem)
+        assert len(batch.meta) > 1
+        A._check_chunks(batch.waves, batch.meta, len(batch.pin_rows), batch.max_rows, batch.rootp)
+        ops_ = batch.operands(cuda_device, A._dev_elem(k_max, cuda_device))
+        assert A._fits_shared(ops_[0].shape[1], batch.max_rows, batch.cw) == (row_space == "shared")
+        got = A.eval_mega(*ops_)
+        torch.cuda.synchronize()
+        assert torch.equal(got, A.eval_mega_plain(*ops_[:5]))
+        out = got.cpu().numpy().view(np.uint32)
+        for pos, idx in enumerate(idxs):
+            roots, sup = items[idx]
+            mask = (1 << (1 << len(sup))) - 1
+            row = out[int(batch.qoff[pos])]
+            assert int.from_bytes(row.tobytes(), "little") & mask == aig.truth_table(roots[0], sup)
+    assert A.LAUNCHES["eval_mega"] == before[1] + 3
+    assert all(A.TIER_LAUNCHES[w] == before[0][w] + 1 for w in (1, 32, 512))
 
 
 @pytest.mark.cuda
-def test_k1_signatures_and_eval_tts_on_card(cuda_device):
+@pytest.mark.parametrize("row_space", ["shared", "global"])
+@pytest.mark.parametrize("n_words,sig_slice", [(4, 2), (3, 4)])
+def test_k1_signatures_and_eval_tts_on_card(
+    cuda_device, row_space, n_words, sig_slice, monkeypatch
+):
+    """Signatures through `sig_eval` in both row spaces; (3 words, slice 4)
+    leaves a ragged last column slice (W = 6).  Then `eval_tts` on the
+    card equals the CPU's."""
+    if row_space == "global":
+        monkeypatch.setattr(A, "MAX_SHARED_BYTES", 0)
+    monkeypatch.setattr(A, "_SIG_SLICE", sig_slice)
     rng = np.random.default_rng(15)
     aig = random_aig(rng, n_pis=10, n_ands=400)
-    patterns = rng.integers(0, 1 << 63, size=(aig.n_pis, 4), dtype=np.int64).astype(np.uint64)
+    prog = A.compile_aig(aig)
+    assert A._sig_cw(prog.waves.shape[1], prog.n_pad) == (sig_slice, row_space == "shared")
+    patterns = rng.integers(0, 1 << 63, size=(aig.n_pis, n_words), dtype=np.int64).astype(np.uint64)
     before = A.LAUNCHES["sig_eval"]
     np.testing.assert_array_equal(
         A.node_signatures(aig, patterns, device=cuda_device), T._node_signatures(aig, patterns)
@@ -101,6 +119,43 @@ def test_k1_signatures_and_eval_tts_on_card(cuda_device):
     assert A.LAUNCHES["sig_eval"] == before + 1
     items = [((lit(n),), T._reconv_cut(aig, n, 8)) for n in range(aig.n_nodes - 1, aig.n_pis, -7)]
     assert A.eval_tts(aig, items, device=cuda_device) == A.eval_tts(aig, items, device="cpu")
+
+
+@pytest.mark.cuda
+def test_k1_eval_tts_wide_tier_on_card(cuda_device, monkeypatch):
+    """k = 11..14 queries go through K1 on the card (no `Aig.truth_table`
+    call) and equal `Aig.truth_table`."""
+    rng = np.random.default_rng(16)
+    aig = random_aig(rng, n_pis=14, n_ands=300)
+    items = [
+        ((lit(n), lit(n, 1)), T._reconv_cut(aig, n, 14))
+        for n in range(aig.n_nodes - 1, aig.n_pis, -1)
+    ]
+    items = [it for it in items if 11 <= len(it[1]) <= 14]
+    assert {11, 14} <= {len(s) for _, s in items}
+    want = [tuple(aig.truth_table(rl, list(s)) for rl in r) for r, s in items]
+
+    def no_host_tables(*args, **kw):
+        raise AssertionError("Aig.truth_table called on the card's path")
+
+    before = A.TIER_LAUNCHES[512]
+    monkeypatch.setattr(Aig, "truth_table", no_host_tables)
+    got = A.eval_tts(aig, items, device=cuda_device)
+    monkeypatch.undo()
+    assert got == want
+    assert A.TIER_LAUNCHES[512] == before + 1
+
+
+@pytest.mark.cuda
+def test_k1_wide_tier_launches_in_resub_of_log2(cuda_device):
+    """`_resub_device` on the default-scale log2 circuit (56 wide union
+    supports) sends its W=512 queries through K1 and gives the python
+    transform's output."""
+    aig = C.benchmark_suite("default", only=["log2"])["log2"]
+    before = A.TIER_LAUNCHES[512]
+    out = T._resub_device(aig, device=cuda_device)
+    assert A.TIER_LAUNCHES[512] > before
+    assert out.fingerprint() == T.resub(aig).fingerprint()
 
 
 @pytest.mark.cuda
