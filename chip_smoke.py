@@ -33,12 +33,31 @@ and then runs these phases, failing (non-zero exit) on any error:
 4. K2 against its plain torch version on the card, per winner netlist,
    with its register file in shared memory (as the main path runs it)
    and forced into global memory.
+5. The exploration service (``ExplorationService(device="cuda")``) over
+   ``adder``, ``max`` and ``log2`` at the default scale, all 65 recipes
+   and the 12 topologies, on a fresh on-disk cache: 3 cold requests in
+   one batch (their front half must launch ``eval_mega``, W=512 included,
+   and ``sig_eval``, with no host ``Aig.truth_table`` call), 20 rounds
+   of 24 warm re-ranks (no K1 launch, no back-half pass), a 1024-variant sweep
+   request on ``log2``, two structured errors, a 64-request burst from 4
+   threads and a second service answering from the disk cache with no K1
+   launch.  Every winner must equal ``explore_request`` on the card (the
+   float bits of energy and latency included), the sweep's summary
+   ``explore_request(model_sweep=...)``; no request may be degraded and
+   the worker may neither crash nor restart.
+6. The journaled sweep runner (``run_sweep``, one circuit per shard,
+   the 1024-variant table, the same cache): an uninterrupted run, a run
+   crashed by the ``sweep.shard`` fault after its first shard, and its
+   resume, which must equal the uninterrupted rows bit for bit; each
+   circuit's per-variant winners and winner energies must equal phase
+   3's.
 
 Kernel times are device times of back-to-back launches; ``bound_ms``
 counts each byte a call must move once, over the card's HBM rate.
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
-build seconds, per-phase times, a ``{"kernels": [...]}`` JSON line and,
+build seconds, per-phase times (the K1 launches of phases 5 and 6 on lines of
+their own), a ``{"kernels": [...]}`` JSON line (launch counts of phase 2) and,
 last, ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 CUDA device and when ``src/repro_torch`` is not beside it.
 """
@@ -49,6 +68,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -431,9 +451,7 @@ def phase_main(dev, rng):
     from repro_torch.kernels import ops
 
     suite = C.benchmark_suite("default")
-    for d in (A.LAUNCHES, A.TIER_LAUNCHES, K.LAUNCHES):
-        for k in d:
-            d[k] = 0
+    zero_launches()
     t0 = time.time()
     # Aig.truth_table runs in the front half only as eval_tts's host path
     # for supports wider than the device takes: none on the card.
@@ -557,6 +575,7 @@ def phase_sweep(dev, suite, cha):
     for name in suite:
         v = fused[name].variation
         print(f"  {name}: best_yield {v.best_yield} cvar90 {v.cvar(0.9)}")
+    return mc, fused
 
 
 # ---------------------------------------------------------------------------
@@ -609,6 +628,283 @@ def phase_k2(dev, netlists, vectors):
     return {"cim": dict(ms=ms, plain_ms=plain, bytes=sum(b for *_, b in calls) / n)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the exploration service on the card
+# ---------------------------------------------------------------------------
+
+SERVICE_CIRCUITS = ("adder", "max", "log2")
+#: max_memory_kb x max_latency_ns of the warm re-rank traffic
+WARM_CONSTRAINTS = [
+    dict(max_memory_kb=kb, max_latency_ns=lat)
+    for kb in (None, 12, 48, 192)
+    for lat in (None, 100.0)
+]
+#: rounds of the warm traffic (every circuit x constraint set per round),
+#: so that its p99 is read from 480 requests and not from 24
+WARM_ROUNDS = 20
+BURST_REQUESTS, BURST_THREADS = 64, 4
+
+
+def zero_launches():
+    from repro_torch.kernels import aig_sim as A
+    from repro_torch.kernels import cim_logic as K
+
+    for d in (A.LAUNCHES, A.TIER_LAUNCHES, K.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def k1_launches() -> dict:
+    from repro_torch.kernels import aig_sim as A
+
+    return {**A.LAUNCHES, "eval_mega_by_tier": dict(A.TIER_LAUNCHES)}
+
+
+def same_winner(w, off, msg: str) -> None:
+    """A service `Winner` against the offline `explore_request` result:
+    recipe, topology and the float bits of energy and latency (the
+    offline grid cell comes from the same fused pass)."""
+    g = off.grid
+    cell = g.cell(g.topologies.index(off.best.topo), g.recipes.index(tuple(off.best.recipe)))
+    check(
+        (w.recipe, w.topology) == (tuple(off.best.recipe), off.best.topo),
+        f"{msg}: service winner {w.recipe}/{w.topology.name} != explore_request "
+        f"{off.best.recipe}/{off.best.topo.name}",
+    )
+    check(
+        (w.energy_nj.hex(), w.latency_ns.hex()) == (cell.energy_nj.hex(), cell.latency_ns.hex()),
+        f"{msg}: winner energy/latency bits differ from explore_request",
+    )
+
+
+def phase_service(dev, suite, cha, mc, cache_dir):
+    """`ExplorationService` on ``dev`` over ``suite``: cold, warm
+    re-rank, a Monte-Carlo sweep request, errors, a threaded burst and a
+    second service answering from the on-disk cache."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aig import Aig
+    from repro_torch.core.explorer import explore_request
+    from repro_torch.core.transforms import CharacterizationCache
+    from repro_torch.kernels import aig_sim as A
+    from repro_torch.serve.explore_service import ExplorationService, ExploreRequest
+
+    t_phase = time.time()
+    zero_launches()
+    svc = ExplorationService(device=dev, start=True, cache=cache_dir)
+    offline = {}
+
+    def expect(name, kw):
+        key = (name, tuple(sorted(kw.items())))
+        if key not in offline:
+            offline[key] = explore_request(suite[name], cha=cha[name], device=dev, **kw)
+        return offline[key]
+
+    try:
+        # cold: one submit_batch of every circuit; the front half runs K1
+        with spans([(A, "eval_mega"), (A, "sig_eval")], [(Aig, "truth_table")]) as k1:
+            t = time.time()
+            cold = [f.result() for f in svc.submit_batch(
+                [ExploreRequest(suite[n], tag=n) for n in suite]
+            )]
+            cold_s = time.time() - t
+        cold_launches = k1_launches()
+        k1_cold_s = sum(device_s(k1.get(k, [])) for k in ("eval_mega", "sig_eval"))
+        for r in cold:
+            check(r.ok, f"service cold {r.request.tag}: {r.error}")
+            same_winner(r.winner, expect(r.request.tag, {}), f"service cold {r.request.tag}")
+        check(A.LAUNCHES["eval_mega"] > 0 and A.LAUNCHES["sig_eval"] > 0,
+              f"cold service requests launched no K1: {cold_launches}")
+        check(A.TIER_LAUNCHES[512] > 0, "cold service requests made no W=512 eval_mega launch")
+        n_tt = len(k1.get("truth_table", []))
+        check(n_tt == 0, f"{n_tt} host Aig.truth_table calls in the service's front half")
+        st = svc.stats()
+        print(
+            f"service cold: {len(cold)} requests in {cold_s:.3f} s; service_ms "
+            + json.dumps({r.request.tag: r.service_ms for r in cold})
+            + f"; buckets {st['buckets']}; K1 {k1_cold_s:.4f} s on the card"
+        )
+        print("service cold K1 launches: " + json.dumps(cold_launches))
+        # the service's characterization (cached on disk) equals phase 2's
+        disk = CharacterizationCache(cache_dir)
+        for name in ("adder", "log2"):
+            got = disk.load(suite[name].fingerprint())
+            check({r: got[r] for r in cha[name]} == cha[name],
+                  f"{name}: service AigStats != phase 2's")
+
+        # warm re-rank: constraints only; no K1 launch, no back-half pass
+        launches = k1_launches()
+        evaluate_calls = svc.stats()["evaluate_calls"]
+        warm_ms = []
+        for _ in range(WARM_ROUNDS):
+            for name in suite:
+                for kw in WARM_CONSTRAINTS:
+                    r = svc.submit(ExploreRequest(suite[name], **kw)).result()
+                    check(r.ok, f"warm {name} {kw}: {r.error}")
+                    check(r.grid_cache_hit and r.cha_cache_hit,
+                          f"warm {name} {kw}: not a cache hit")
+                    same_winner(r.winner, expect(name, kw), f"warm {name} {kw}")
+                    warm_ms.append(r.service_ms)
+        check(k1_launches() == launches, "warm re-ranks launched K1")
+        check(svc.stats()["evaluate_calls"] == evaluate_calls, "warm re-ranks ran the back half")
+        print(
+            f"service warm re-rank: {len(warm_ms)} requests, service_ms p50 "
+            f"{np.percentile(warm_ms, 50):.4f} p99 {np.percentile(warm_ms, 99):.4f} "
+            f"max {max(warm_ms):.4f}"
+        )
+
+        # a Monte-Carlo sweep request on log2
+        r = svc.submit(ExploreRequest(suite["log2"], model_sweep=mc)).result()
+        check(r.ok, f"service MC sweep: {r.error}")
+        off = explore_request(suite["log2"], cha=cha["log2"], model_sweep=mc, device=dev)
+        v, vo = r.variation, off.variation
+        check(list(v.winners) == [(tuple(a), b) for a, b in vo.winners],
+              "service MC sweep: winners != explore_request(model_sweep=...)")
+        check(np.array_equal(v.winner_energy_nj, vo.winner_energy_nj),
+              "service MC sweep: winner_energy_nj != explore_request")
+        check(v.energy_quantiles == vo.energy_quantiles
+              and v.best_yield == vo.best_yield and v.latency_yield == vo.latency_yield,
+              "service MC sweep: quantiles or yields != explore_request")
+        print(
+            f"service MC sweep: log2 x {v.n_variants} variants, service_ms {r.service_ms:.3f}, "
+            f"best_yield {v.best_yield}; equal to explore_request(model_sweep=...)"
+        )
+
+        # structured errors
+        bad = svc.submit(ExploreRequest(Aig(4, name="no-outputs"))).result()
+        check(not bad.ok and bad.error.code == "malformed-circuit",
+              f"no-output circuit answered {bad.error}")
+        tiny = svc.submit(ExploreRequest(suite["adder"], max_memory_kb=1)).result()
+        check(not tiny.ok and tiny.error.code == "infeasible-memory",
+              f"max_memory_kb=1 answered {tiny.error}")
+
+        # burst: warm requests from several threads
+        launches = k1_launches()
+        plan = [
+            (name, WARM_CONSTRAINTS[i % len(WARM_CONSTRAINTS)])
+            for i, name in enumerate(list(suite) * (BURST_REQUESTS // len(suite) + 1))
+        ][:BURST_REQUESTS]
+        got = [None] * len(plan)
+
+        def submitter(k):
+            for i in range(k, len(plan), BURST_THREADS):
+                name, kw = plan[i]
+                got[i] = svc.submit(ExploreRequest(suite[name], **kw)).result()
+
+        threads = [threading.Thread(target=submitter, args=(k,)) for k in range(BURST_THREADS)]
+        t = time.time()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        burst_s = time.time() - t
+        for (name, kw), r in zip(plan, got):
+            check(r is not None and r.ok, f"burst {name} {kw}: {r and r.error}")
+            same_winner(r.winner, expect(name, kw), f"burst {name} {kw}")
+        check(k1_launches() == launches, "burst requests launched K1")
+        print(
+            f"service burst: {len(plan)} warm requests from {BURST_THREADS} threads in "
+            f"{burst_s:.4f} s = {len(plan) / burst_s:.2f} requests/s"
+        )
+        st = svc.stats()
+    finally:
+        svc.close()
+    for k in ("degraded", "worker_crashes", "worker_restarts"):
+        check(st.get(k, 0) == 0, f"service stats: {k} = {st.get(k)}")
+
+    # a second service over the same cache directory answers from disk
+    launches = k1_launches()
+    with ExplorationService(device=dev, start=True, cache=cache_dir) as svc2:
+        r = svc2.submit(ExploreRequest(suite["adder"])).result()
+    check(r.ok, f"disk-hit service: {r.error}")
+    same_winner(r.winner, expect("adder", {}), "disk-hit service")
+    check(k1_launches() == launches, "the disk-hit service launched K1")
+    print(f"service disk hit: adder answered in {r.service_ms:.3f} ms with 0 K1 launches")
+    torch.cuda.synchronize()
+    wall = time.time() - t_phase
+    print(f"service phase: wall {wall:.3f} s; stats " + json.dumps(
+        {k: v for k, v in st.items() if k != "buckets"}))
+    return wall
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the journaled sweep runner on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_runner(dev, suite, mc, fused, cache_dir, journal_root):
+    """`run_sweep` over ``suite`` under the Monte-Carlo table ``mc``: an
+    uninterrupted run, a run crashed after its first shard, and its
+    resume; rows against phase 3's fused ``explore_suite`` results."""
+    import numpy as np
+    from repro_torch.ckpt import manager as M
+    from repro_torch.core.sram import TOPOLOGY_LIBRARY
+    from repro_torch.core.sweep_runner import SweepRunner, run_sweep
+    from repro_torch.core.transforms import enumerate_recipes
+    from repro_torch.runtime import faults
+
+    t_phase = time.time()
+    zero_launches()
+    kw = dict(model=mc, cache=cache_dir, device=dev)
+    marks = []
+    # the writer thread's publish time, every publish of the three runs
+    with spans([], [(M.CheckpointManager, "_write")]) as publish:
+        runner = SweepRunner(f"{journal_root}/whole", 1,
+                             on_shard=lambda i, names: marks.append(time.perf_counter()))
+        t0 = time.perf_counter()
+        whole = runner.run(suite, **kw)
+        whole_s = time.perf_counter() - t0
+        with faults.injected(faults.FaultRule("sweep.shard", "raise", after=1)):
+            try:
+                run_sweep(suite, journal_dir=f"{journal_root}/crashed", shard_size=1, **kw)
+            except faults.FaultError:
+                pass
+            else:
+                fail("the sweep.shard fault did not stop the crashed run")
+        t = time.perf_counter()
+        resumed = run_sweep(suite, journal_dir=f"{journal_root}/crashed", shard_size=1, **kw)
+        resume_s = time.perf_counter() - t
+        M.CheckpointManager(f"{journal_root}/crashed").wait()
+    publish_s = publish["_write"]
+    check(resumed.shards_resumed == 1 and resumed.shards_run == len(suite) - 1,
+          f"resume: {resumed.shards_resumed} resumed, {resumed.shards_run} run")
+    a, b = resumed.selection, whole.selection
+    check(np.array_equal(a.winner_idx, b.winner_idx)
+          and np.array_equal(a.nominal_latency_ns, b.nominal_latency_ns)
+          and np.array_equal(a.nominal_fits, b.nominal_fits)
+          and all(np.array_equal(a.winner_metrics[k], v) for k, v in b.winner_metrics.items()),
+          "resumed sweep rows != uninterrupted sweep rows")
+    # the runner's per-circuit rows against phase 3's fused explore_suite
+    recipes = list(dict.fromkeys([()] + enumerate_recipes()))
+    for c, name in enumerate(whole.circuits):
+        var = fused[name].variation
+        rows = [divmod(int(i), len(recipes)) for i in b.winner_idx[c]]
+        check([(recipes[ri], TOPOLOGY_LIBRARY[ti]) for ti, ri in rows]
+              == [(tuple(r), t) for r, t in var.winners],
+              f"{name}: sweep runner winners != phase 3's")
+        check(np.array_equal(b.winner_metrics["energy_nj"][c], var.winner_energy_nj),
+              f"{name}: sweep runner winner energies != phase 3's")
+    check(k1_launches()["eval_mega"] == 0, "the sweep runner's front half launched K1")
+    # time between shard publishes (the first also holds the front half,
+    # here disk hits); each on_shard waits for its publish to land
+    shard_ms = [1e3 * (m1 - m0) for m0, m1 in zip([t0] + marks, marks)]
+    print(
+        f"sweep runner: {len(suite)} circuits x {len(mc)} variants, shard_size 1: "
+        f"uninterrupted {1e3 * whole_s:.3f} ms (per shard "
+        + ", ".join(f"{x:.3f}" for x in shard_ms)
+        + " ms); journal publish ms (writer thread, every publish of the three runs) "
+        + ", ".join(f"{1e3 * x:.3f}" for x in publish_s)
+        + f"; resume {1e3 * resume_s:.3f} ms; rows bit-equal after resume and equal to "
+        "phase 3's winners and energies"
+    )
+    print("sweep runner K1 launches: " + json.dumps(k1_launches()))
+    wall = time.time() - t_phase
+    print(f"sweep runner phase: wall {wall:.3f} s")
+    return wall
+
+
 KERNELS = {
     "eval_mega": (
         "aig_sim.eval_mega",
@@ -655,8 +951,15 @@ def main() -> int:
     rng = np.random.default_rng(0)
     times = phase_k1(dev, rng)
     suite, cha, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
-    phase_sweep(dev, suite, cha)
+    mc, fused = phase_sweep(dev, suite, cha)
     times.update(phase_k2(dev, netlists, vectors))
+    # Phases 5-6 run after the kernel line's launch counts were taken
+    # (``launches`` is phase 2's); each phase sets the counts to 0 first.
+    served = {n: suite[n] for n in SERVICE_CIRCUITS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        service_s = phase_service(dev, served, cha, mc, f"{tmp}/cha")
+        runner_s = phase_runner(dev, served, mc, fused, f"{tmp}/cha", f"{tmp}/journal")
+    print(f"phases 5-6 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

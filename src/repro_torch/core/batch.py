@@ -25,7 +25,10 @@ of torch tensor ops:
   * ``select_best`` / ``select_best_batch`` / ``select_best_worst`` — the
     numpy admissibility filter + energy argmin shared with the explorer;
     ``select_best_batch_device`` runs it on the device for precomputed
-    metric arrays.
+    metric arrays;
+  * ``pad_suite`` / ``bucket_suite`` — snap a suite onto a canonical
+    ``(C, R, L_pad, T, V)`` bucket, the exploration service's batch
+    group and the sweep runner's shard shape.
 
 Where the reference vmapped over variants and circuits, the port writes
 those axes out: every kernel works on ``(C, V, T, R)`` tensors (circuits,
@@ -339,6 +342,13 @@ class SuiteTable:
             gates=op_totals.sum(axis=2),
         )
 
+    def bucket_shape(self, n_topologies: int, n_variants: int = 1) -> tuple:
+        """The bucket this table falls in (see `bucket_suite`):
+        ``(C, R, L_pad, T, V)``.  The exploration service groups batches
+        and labels responses by it."""
+        c, r, l, _ = self.ops.shape
+        return (c, r, l, int(n_topologies), int(n_variants))
+
     def workload(self, circuit: str | int) -> WorkloadTable:
         """One circuit's rows as a standalone `WorkloadTable` view."""
         c = self.circuit_index(circuit)
@@ -357,6 +367,100 @@ class SuiteTable:
 
     def __len__(self) -> int:
         return len(self.circuits)
+
+
+# ---------------------------------------------------------------------------
+# Bucket-shape helpers (continuous batching for the exploration service)
+# ---------------------------------------------------------------------------
+#
+# Eager torch has no trace to reuse, so bucketing buys no compile here.
+# What it buys is a small, stable set of batch shapes: the circuit axis
+# pads up to a power of two and the (already LEVEL_PAD-quantized) level
+# axis up to a power-of-two multiple of LEVEL_PAD.  The exploration
+# service groups its batches by that shape and reports it in every
+# response (``ExploreResponse.bucket``); the sweep runner pads every
+# shard to one shape.  Padding rows duplicate a real circuit (all cells
+# stay finite, so the fused on-device selection never trips on them) and
+# are named so callers can recognize and drop them; each real circuit's
+# result is bit-identical to its unpadded run.
+
+#: Name prefix of padding rows introduced by `pad_suite`.
+PAD_CIRCUIT_PREFIX = "__pad"
+
+
+def ceil_pow2(n: int) -> int:
+    """Smallest power of two >= ``n`` (and >= 1)."""
+    n = int(n)
+    if n <= 1:
+        return 1
+    return 1 << (n - 1).bit_length()
+
+
+def bucket_levels(n_levels: int, pad: int = LEVEL_PAD) -> int:
+    """Canonical level-axis width for a suite whose deepest circuit has
+    ``n_levels`` levels: the smallest power-of-two multiple of ``pad``
+    that covers it (64, 128, 256, ... for the default `LEVEL_PAD`), so
+    progressively deeper circuits step through O(log L) shapes instead
+    of one shape per depth."""
+    pad = max(int(pad), 1)
+    return pad * ceil_pow2(-(-max(int(n_levels), 1) // pad))
+
+
+def pad_suite(
+    suite: SuiteTable,
+    n_circuits: int | None = None,
+    pad_levels_to: int | None = None,
+) -> SuiteTable:
+    """Pad a `SuiteTable` into a canonical bucket shape.
+
+    The circuit axis grows to ``n_circuits`` by *duplicating the first
+    circuit's rows* under `PAD_CIRCUIT_PREFIX` names — real (finite)
+    workloads rather than zeros, so every padded cell evaluates to
+    finite metrics and the fused selection's all-non-finite guard never
+    fires on padding.  The level axis grows to ``pad_levels_to`` with
+    zero rows, which the schedule kernels mask out (``n_levels`` is
+    unchanged) — padded results are bit-identical per real circuit.
+
+    Defaults: ``n_circuits`` -> `ceil_pow2` of the current count,
+    ``pad_levels_to`` -> `bucket_levels` of the current level width.
+    """
+    c, r, l, k = suite.ops.shape
+    n_c = ceil_pow2(c) if n_circuits is None else int(n_circuits)
+    l_pad = bucket_levels(l) if pad_levels_to is None else int(pad_levels_to)
+    if n_c < c:
+        raise ValueError(f"cannot pad {c} circuits down to {n_c}")
+    if l_pad < l:
+        raise ValueError(f"cannot pad level axis {l} down to {l_pad}")
+    if n_c == c and l_pad == l:
+        return suite
+    names = list(suite.circuits)
+    for i in range(n_c - c):
+        names.append(f"{PAD_CIRCUIT_PREFIX}{i}")
+    ops = np.zeros((n_c, r, l_pad, k), dtype=suite.ops.dtype)
+    ops[:c, :, :l] = suite.ops
+    ops[c:, :, :l] = suite.ops[0]
+    n_levels = np.concatenate(
+        [suite.n_levels, np.broadcast_to(suite.n_levels[0], (n_c - c, r))]
+    )
+    op_totals = ops.sum(axis=2)
+    return SuiteTable(
+        circuits=tuple(names),
+        recipes=suite.recipes,
+        ops=ops,
+        n_levels=n_levels,
+        op_totals=op_totals,
+        gates=op_totals.sum(axis=2),
+    )
+
+
+def bucket_suite(
+    suite: SuiteTable, n_topologies: int, n_variants: int = 1
+) -> "tuple[SuiteTable, tuple]":
+    """Snap a suite onto its canonical bucket: `pad_suite` with the
+    default (power-of-two) targets, returning the padded table and its
+    `SuiteTable.bucket_shape` key ``(C, R, L_pad, T, V)``."""
+    padded = pad_suite(suite)
+    return padded, padded.bucket_shape(n_topologies, n_variants)
 
 
 

@@ -283,19 +283,19 @@ def sig_eval_plain(waves, vals0, meta) -> torch.Tensor:
 
 def _check(t: torch.Tensor, name: str, ndim: int, device: torch.device) -> None:
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+        raise build.OperandError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
+        raise build.OperandError(f"{name} must be int32, got {t.dtype}")
     if t.ndim != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+        raise build.OperandError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise build.OperandError(f"{name} must be contiguous")
 
 
 def _check_rows(a: np.ndarray, n_rows: int, name: str) -> None:
     """Row indices the kernel dereferences must lie in [0, n_rows)."""
     if a.size and (int(a.min()) < 0 or int(a.max()) >= n_rows):
-        raise ValueError(f"{name} holds a row index outside [0, {n_rows})")
+        raise build.OperandError(f"{name} holds a row index outside [0, {n_rows})")
 
 
 def _check_chunks(
@@ -313,20 +313,20 @@ def _check_chunks(
     the check would cost a device sync per operand on every launch."""
     ncol = 6 if rootp is not None else 4
     if meta.ndim != 2 or meta.shape[1] != ncol:
-        raise ValueError(f"meta must be (C, {ncol}), got {meta.shape}")
+        raise build.OperandError(f"meta must be (C, {ncol}), got {meta.shape}")
     if waves.ndim != 3 or waves.shape[2] != 4:
-        raise ValueError(f"waves must be (L, M, 4), got {waves.shape}")
+        raise build.OperandError(f"waves must be (L, M, 4), got {waves.shape}")
     m = meta.astype(np.int64)
     if m.size and int(m.min()) < 0:
-        raise ValueError("meta holds a negative offset or count")
+        raise build.OperandError("meta holds a negative offset or count")
     spans = [(0, len(waves), "waves"), (2, n_rows, "rows")]
     if rootp is not None:
         spans.append((4, len(rootp), "roots"))
     for col, limit, what in spans:
         if m.size and int((m[:, col] + m[:, col + 1]).max()) > limit:
-            raise ValueError(f"meta: a chunk's {what} run past {limit}")
+            raise build.OperandError(f"meta: a chunk's {what} run past {limit}")
     if m.size and (int(m[:, 3].min()) < 1 or int(m[:, 3].max()) > max_rows):
-        raise ValueError(f"meta: a chunk's rows outside [1, max_rows={max_rows}]")
+        raise build.OperandError(f"meta: a chunk's rows outside [1, max_rows={max_rows}]")
     for row in m:
         cnt = int(row[3])
         _check_rows(waves[row[0] : row[0] + row[1], :, 1:], cnt, "waves")
@@ -357,7 +357,7 @@ def _k1():
 
 def _shift(cw: int) -> int:
     if cw < 1 or cw & (cw - 1):
-        raise ValueError(f"column slice {cw} is not a power of two")
+        raise build.OperandError(f"column slice {cw} is not a power of two")
     return cw.bit_length() - 1
 
 
@@ -370,9 +370,9 @@ def _fits_shared(wave_m: int, max_rows: int, cw: int) -> bool:
 def _check_launch(waves: torch.Tensor, tensors: dict, dev: torch.device) -> None:
     _check(waves, "waves", 3, dev)
     if waves.shape[2] != 4:
-        raise ValueError(f"waves must be (L, M, 4), got {tuple(waves.shape)}")
+        raise build.OperandError(f"waves must be (L, M, 4), got {tuple(waves.shape)}")
     if waves.data_ptr() % 16:
-        raise ValueError("waves must be 16-byte aligned (read as int4)")
+        raise build.OperandError("waves must be 16-byte aligned (read as int4)")
     for name, (t, ndim) in tensors.items():
         _check(t, name, ndim, dev)
 

@@ -8,9 +8,10 @@ source and the flags, so an unchanged source is never rebuilt.  Nothing is built
 `load` builds on first use, and `build_all` starts one ``nvcc`` per
 source at once.
 
-A failed build, a launch that returns a CUDA error, or a CUDA error that
-surfaces later at a copy or a read-back (`device_faults`) raises
-`KernelError`; no caller falls back to the plain version.
+A failed build, operands a kernel refuses (`OperandError`), a launch
+that returns a CUDA error, or a CUDA error that surfaces later at a copy
+or a read-back (`device_faults`) raises `KernelError`; no caller falls
+back to the plain version or to another backend.
 """
 
 from __future__ import annotations
@@ -35,6 +36,14 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 class KernelError(RuntimeError):
     """A hand kernel failed to build or to launch."""
+
+
+class OperandError(KernelError, ValueError):
+    """A kernel (or, on CPU tensors, its plain version) refuses its
+    operands.  The operands are built by the port's packers, never taken
+    from a circuit as they are, so a refusal is a fault of the kernel
+    path on either device, and like every `KernelError` it is never
+    degraded to another backend nor quarantined as a bad circuit."""
 
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"

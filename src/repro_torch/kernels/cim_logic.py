@@ -71,20 +71,20 @@ def cim_plain(instrs, planes, n_gates: int, n_pos: int) -> torch.Tensor:
 def _validate(instrs, planes, n_rows, n_gates, n_pos, block_words) -> None:
     for name, t in (("instrs", instrs), ("planes", planes)):
         if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
+            raise build.OperandError(f"{name} must be int32, got {t.dtype}")
         if t.ndim != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor")
+            raise build.OperandError(f"{name} must be a contiguous 2-D tensor")
     if planes.device != instrs.device:
-        raise ValueError("instrs and planes must be on one device")
+        raise build.OperandError("instrs and planes must be on one device")
     if tuple(instrs.shape) != (n_gates + n_pos, 4):
-        raise ValueError(
+        raise build.OperandError(
             f"instrs must be ({n_gates + n_pos}, 4), got {tuple(instrs.shape)}"
         )
     n_rows_p, n_words = planes.shape
     if n_rows_p != _round_up(n_rows, SUBLANE):
-        raise ValueError(f"planes rows {n_rows_p} != round_up({n_rows}, {SUBLANE})")
+        raise build.OperandError(f"planes rows {n_rows_p} != round_up({n_rows}, {SUBLANE})")
     if n_words % block_words:
-        raise ValueError(f"n_words {n_words} is not a multiple of {block_words}")
+        raise build.OperandError(f"n_words {n_words} is not a multiple of {block_words}")
 
 
 def check_rows(instrs: np.ndarray, n_rows_p: int) -> None:
@@ -93,7 +93,7 @@ def check_rows(instrs: np.ndarray, n_rows_p: int) -> None:
     tensor the check would cost a device sync on every launch."""
     rows = instrs[:, 1:]
     if rows.size and (int(rows.min()) < 0 or int(rows.max()) >= n_rows_p):
-        raise ValueError(f"instrs hold a row index outside [0, {n_rows_p})")
+        raise build.OperandError(f"instrs hold a row index outside [0, {n_rows_p})")
 
 
 def cim_call(

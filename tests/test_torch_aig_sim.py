@@ -25,6 +25,8 @@ from repro_torch.core import circuits as PC
 from repro_torch.core import transforms as PT
 from repro_torch.core.interop import aig_from_dict
 from repro_torch.kernels import aig_sim as PA
+from repro_torch.kernels import build
+from repro_torch.kernels import cim_logic as K2
 
 CPU = "cpu"
 
@@ -249,6 +251,21 @@ def test_chunk_checks_refuse_out_of_range_rows():
         PA._check_chunks(batch.waves, meta, *args[2:])
     with pytest.raises(ValueError, match="max_rows"):
         PA._check_chunks(*args[:3], batch.max_rows - 1, batch.rootp)
+
+
+def test_operand_refusal_is_a_kernel_error():
+    """Operands a kernel refuses are a fault of the kernel path on either
+    device: `OperandError` is a `KernelError` (never degraded to another
+    backend nor quarantined as a bad circuit), and still a `ValueError`."""
+    assert issubclass(build.OperandError, build.KernelError)
+    assert issubclass(build.OperandError, ValueError)
+    waves = np.zeros((1, 1, 4), dtype=np.int32)
+    with pytest.raises(build.OperandError, match="negative"):
+        PA._check_chunks(waves, np.full((1, 4), -1, dtype=np.int32), 1, 1)
+    bad = np.zeros((2, 4), dtype=np.int32)
+    bad[0, 1] = 8
+    with pytest.raises(build.OperandError, match="row index"):
+        K2.check_rows(bad, 8)
 
 
 def test_plain_versions_match_reference_jnp_engine_on_raw_operands(monkeypatch):

@@ -18,6 +18,7 @@ import torch
 from repro.core import circuits as RC
 from repro.kernels import ops as ROPS
 from repro_torch.core.interop import aig_from_dict
+from repro_torch.kernels import build
 from repro_torch.kernels import cim_logic as K
 from repro_torch.kernels import ops, ref
 
@@ -117,7 +118,7 @@ def test_cim_call_validates_operands():
     kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos)
     with pytest.raises(ValueError):
         K.cim_call(instrs, torch.from_numpy(planes[:, :-1].copy()), block_words=bw, **kw)
-    with pytest.raises(TypeError):
+    with pytest.raises(build.OperandError, match="int32"):
         K.cim_call(instrs.long(), torch.from_numpy(planes), block_words=bw, **kw)
     with pytest.raises(ValueError):
         K.cim_call(instrs[1:].contiguous(), torch.from_numpy(planes), block_words=bw, **kw)

@@ -196,3 +196,96 @@ def test_k2_global_register_file_matches_plain_on_card(cuda_device, n_vec, monke
     got = K.cim_call(*args, n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw)
     torch.cuda.synchronize()
     assert torch.equal(got, K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos))
+
+
+@pytest.mark.cuda
+def test_service_request_on_card(cuda_device):
+    """One cold and one warm request through the exploration service on
+    the card: the cold one launches K1, the warm re-rank launches
+    nothing, and both winners equal `explore_request` on the card."""
+    from repro_torch.core.explorer import explore_request
+    from repro_torch.core.sram import TOPOLOGY_LIBRARY
+    from repro_torch.serve.explore_service import ExplorationService, ExploreRequest
+
+    topos, recipes = TOPOLOGY_LIBRARY[:5], [(), ("Rw",), ("Rf",), ("Rs",)]
+    rtl = C.gen_adder(8)
+    with ExplorationService(sram_list=topos, recipes=recipes, device=cuda_device) as svc:
+        before = A.LAUNCHES["eval_mega"]
+        cold = svc.submit(ExploreRequest(rtl)).result(timeout=600)
+        assert cold.ok, cold.error
+        assert A.LAUNCHES["eval_mega"] > before
+        launches = dict(A.LAUNCHES)
+        warm = svc.submit(ExploreRequest(rtl, max_latency_ns=1e6)).result(timeout=600)
+        assert warm.ok and warm.grid_cache_hit
+        assert dict(A.LAUNCHES) == launches
+        st = svc.stats()
+        assert st["evaluate_calls"] == 1 and st.get("degraded", 0) == 0
+    for resp, kw in ((cold, {}), (warm, dict(max_latency_ns=1e6))):
+        off = explore_request(rtl, topos, recipes, device=cuda_device, **kw)
+        cell = off.grid.cell(off.grid.topologies.index(off.best.topo),
+                             off.grid.recipes.index(tuple(off.best.recipe)))
+        assert (resp.winner.recipe, resp.winner.topology) == (tuple(off.best.recipe), off.best.topo)
+        assert resp.winner.energy_nj == cell.energy_nj
+        assert resp.winner.latency_ns == cell.latency_ns
+
+
+@pytest.mark.cuda
+def test_two_shard_journaled_sweep_on_card(cuda_device, tmp_path):
+    """A two-shard journaled sweep on the card, crashed after its first
+    shard and resumed, equals the uninterrupted run bit for bit."""
+    from repro_torch.core.sram import TOPOLOGY_LIBRARY, ModelTable
+    from repro_torch.core.sweep_runner import run_sweep
+    from repro_torch.runtime import faults
+
+    circuits = C.benchmark_suite("tiny", only=["adder", "max"])
+    kw = dict(sram_list=TOPOLOGY_LIBRARY[:5], recipes=[(), ("Rw",), ("Rs",)],
+              model=ModelTable.monte_carlo(n=16, sigma=0.1, seed=0),
+              cache=tmp_path / "cha", n_jobs=1, device=cuda_device, shard_size=1)
+    whole = run_sweep(circuits, **kw)
+    with faults.injected(faults.FaultRule("sweep.shard", "raise", after=1)):
+        with pytest.raises(faults.FaultError):
+            run_sweep(circuits, journal_dir=tmp_path / "j", **kw)
+    resumed = run_sweep(circuits, journal_dir=tmp_path / "j", **kw)
+    assert resumed.shards_resumed == 1 and resumed.shards_run == 1
+    a, b = resumed.selection, whole.selection
+    assert np.array_equal(a.winner_idx, b.winner_idx)
+    assert np.array_equal(a.nominal_latency_ns, b.nominal_latency_ns)
+    assert np.array_equal(a.nominal_fits, b.nominal_fits)
+    for k, v in b.winner_metrics.items():
+        assert np.array_equal(a.winner_metrics[k], v), k
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wal,n,layout", [(True, 256, "wal"), (False, 256, "file"),
+                                          (False, 1024, "dir")])
+def test_deferred_snapshot_of_device_tensors_restores_bit_equal(cuda_device, tmp_path, wal,
+                                                                n, layout):
+    """Device tensors saved with ``defer_snapshot`` cross to the host on
+    the writer thread, after the event recorded on the stream that made
+    them, and restore bit-equal on the card in each on-disk layout
+    (bfloat16 and fp8 included)."""
+    from repro_torch.ckpt.manager import CheckpointManager
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        a = torch.randn(n, n, device=cuda_device, generator=g)
+        tree = {"f32": a @ a, "bf16": (3 * a).to(torch.bfloat16),
+                "fp8": a.to(torch.float8_e4m3fn), "i64": torch.arange(n, device=cuda_device),
+                "s": [torch.tensor(7, dtype=torch.int32, device=cuda_device)]}
+        m = CheckpointManager(str(tmp_path), wal=wal, defer_snapshot=True)
+        m.save(0, tree, meta={"n": n})
+    m.wait()
+    side.synchronize()
+    step = tmp_path / "step_0"
+    assert {"wal": not step.exists(), "file": step.is_file(), "dir": step.is_dir()}[layout]
+    back, meta = m.restore(tree, device=cuda_device)
+    assert meta["meta"] == {"n": n}
+    for got, want in zip((back["f32"], back["bf16"], back["fp8"], back["i64"], back["s"][0]),
+                         (tree["f32"], tree["bf16"], tree["fp8"], tree["i64"], tree["s"][0])):
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert got.shape == want.shape and torch.equal(_bits(got), _bits(want))

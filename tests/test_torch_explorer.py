@@ -29,15 +29,18 @@ from repro.core import explorer as RE
 from repro.core import mapping as RM
 from repro.core import sram as RS
 from repro.core.transforms import characterize_suite as r_characterize_suite
+from repro_torch.ckpt.manager import CheckpointManager as PCheckpointManager
 from repro_torch.core import batch as PB
 from repro_torch.core import circuits as PC
 from repro_torch.core import explorer as PE
 from repro_torch.core import interop
 from repro_torch.core import transforms as PT
+from repro_torch.core.sweep_runner import run_sweep as p_run_sweep
 from repro_torch.core.sram import TOPOLOGY_LIBRARY as P_LIBRARY
 from repro_torch.core.sram import EnergyModel as PEnergyModel
 from repro_torch.kernels import aig_sim as PA
 from repro_torch.kernels import ops as POPS
+from repro_torch.serve.explore_service import ExplorationService
 
 CPU = "cpu"
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -212,7 +215,18 @@ ENTRY_POINTS = {
         PB.SuiteTable.from_cha({"a": {(): s["adder"].characterize()}}),
         PB.TopologyTable.from_topologies(P_LIBRARY), PEnergyModel(),
     ),
+    "ExplorationService": lambda s: ExplorationService(recipes=[("Rw",)], start=False),
+    "run_sweep": lambda s: p_run_sweep(s, recipes=[("Rw",)]),
+    "CheckpointManager.restore": lambda s: _saved_checkpoint().restore({"a": 0}),
 }
+
+
+def _saved_checkpoint():
+    import tempfile
+
+    m = PCheckpointManager(tempfile.mkdtemp(), async_save=False)
+    m.save(0, {"a": np.arange(3)})
+    return m
 
 
 @pytest.mark.parametrize("entry", list(ENTRY_POINTS))
