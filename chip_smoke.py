@@ -27,7 +27,8 @@ and then runs these phases, failing (non-zero exit) on any error:
    vectors, the adder's sums and carries checked against integer
    arithmetic.  Winners must equal the scalar ``backend="python"`` back
    half on the same characterization; the device-backend ``AigStats`` of
-   ``adder`` and ``log2`` must equal the python backend's.
+   every circuit must equal the python backend's (``adder`` and ``log2``
+   serially, the other seven on the spawn pool, sine first).
 3. A 1024-variant Monte-Carlo sweep of the back half; its winners must
    equal the ``fused=False`` host-selection path.
 4. K2 against its plain torch version on the card, per winner netlist,
@@ -51,21 +52,35 @@ and then runs these phases, failing (non-zero exit) on any error:
    resume, which must equal the uninterrupted rows bit for bit; each
    circuit's per-variant winners and winner energies must equal phase
    3's.
+7. The paper's CLI (``repro_torch.launch.cim_explore``, in process, on
+   the card): ``--all`` from a cache seeded with phase 2's
+   characterization (its nine Table-I rows must equal phase 2's, with no
+   K1 launch), ``log2`` from a cold cache (K1 launches in all three word
+   tiers, the same row) and ``log2`` under the 1024-variant Monte-Carlo
+   table (the yield summary of phase 3's sweep).
+8. The chaos matrix (``repro_torch.launch.chaos --device cuda``, in
+   process): all 13 scenarios must recover with parity, none skipped;
+   then the journal's ``machinery_overhead_pct`` as the reference's
+   fault bench defines it, printed beside its 2% gate (a reading, not a
+   check).
 
 Kernel times are device times of back-to-back launches; ``bound_ms``
 counts each byte a call must move once, over the card's HBM rate.
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
-build seconds, per-phase times (the K1 launches of phases 5 and 6 on lines of
-their own), a ``{"kernels": [...]}`` JSON line (launch counts of phase 2) and,
-last, ``{"ok": true, "device": {...}}``.  It exits non-zero without a
-CUDA device and when ``src/repro_torch`` is not beside it.
+build seconds, per-phase times (the K1 launches of phases 5-8 on lines of
+their own), the script's wall time, a ``{"kernels": [...]}`` JSON line
+(launch counts of phase 2) and, last, ``{"ok": true, "device": {...}}``.
+It exits non-zero without a CUDA device and when ``src/repro_torch`` is
+not beside it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -76,6 +91,9 @@ ROOT = Path(__file__).resolve().parent
 #: Peak HBM bandwidth of one H100 SXM (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 N_VECTORS = 1 << 16
+#: circuits whose device-backend AigStats phase 2 also holds against the
+#: python backend on a spawn pool (adder and log2 are checked serially)
+PYTHON_CHECKED = ("sine", "sqrt", "mult", "bar", "max", "div", "square")
 MC_VARIANTS = 1024
 K1_SAMPLE = 300  # queries per tier checked against Aig.truth_table
 W512_QUERIES = 256
@@ -540,7 +558,22 @@ def phase_main(dev, rng):
             f"{name} AigStats: device backend == python backend ({len(py[name])} "
             f"recipes; python backend {time.time() - t:.3f} s)"
         )
-    return suite, cha, netlists, vectors, launches, t1 - t0, t2 - t1
+    # The rest of the suite on the python backend's spawn pool, sine (the
+    # main path's largest source of W=512 queries) first.
+    jobs = min(8, os.cpu_count() or 1)
+    t = time.time()
+    py = characterize_suite({n: suite[n] for n in PYTHON_CHECKED}, backend="python",
+                            n_jobs=jobs, device=dev)
+    for name in PYTHON_CHECKED:
+        bad = [r for r in cha[name] if py[name][r] != cha[name][r]]
+        check(not bad, f"{name} AigStats: device != python backend for {len(bad)} "
+                       f"recipes, first {bad[:1]}")
+    print(
+        f"AigStats device backend == python backend for {', '.join(PYTHON_CHECKED)} "
+        f"({len(cha['sine'])} recipes each; python backend on {jobs} spawn workers "
+        f"{time.time() - t:.3f} s)"
+    )
+    return suite, cha, res, netlists, vectors, launches, t1 - t0, t2 - t1
 
 
 # ---------------------------------------------------------------------------
@@ -905,6 +938,183 @@ def phase_runner(dev, suite, mc, fused, cache_dir, journal_root):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the paper's CLI at full width
+# ---------------------------------------------------------------------------
+
+
+def run_cli(argv):
+    """``cim_explore.main(argv)`` on the card; its printed report is kept,
+    and only each circuit's header and saving line are shown.  Returns
+    (results, stdout, wall s)."""
+    from repro_torch.launch import cim_explore
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = cim_explore.main(argv)
+    wall = time.perf_counter() - t
+    for line in buf.getvalue().splitlines():
+        if line.startswith(("===", "  best-vs-worst")):
+            print("  " + line.strip())
+    return res, buf.getvalue(), wall
+
+
+def phase_cli(suite, cha, res, fused, warm_dir, cold_dir):
+    """`python -m repro_torch.launch.cim_explore` in process on the card:
+    every circuit from a warm cache seeded with phase 2's
+    characterization (no K1 launch), log2 cold (K1 in every word tier),
+    and log2 under the 1024-variant Monte-Carlo table."""
+    from repro_torch.core.transforms import CharacterizationCache
+    from repro_torch.kernels import aig_sim as A
+    from repro_torch.launch.cim_explore import yield_summary
+
+    t_phase = time.time()
+    cache = CharacterizationCache(warm_dir)
+    for name, aig in suite.items():
+        cache.store(aig.fingerprint(), cha[name])
+
+    zero_launches()
+    got, _, wall = run_cli(["--all", "--scale", "default", "--cache", warm_dir])
+    check(list(got) == list(suite), f"CLI --all answered {list(got)}")
+    for name in suite:
+        check(got[name].table_row() == res[name].table_row(),
+              f"CLI {name} row {got[name].table_row()} != phase 2's {res[name].table_row()}")
+    check(k1_launches()["eval_mega"] == 0 and k1_launches()["sig_eval"] == 0,
+          f"the warm CLI run launched K1: {k1_launches()}")
+    print(f"CLI warm --all: {len(got)} Table-I rows equal phase 2's in {wall:.3f} s; "
+          f"K1 launches {json.dumps(k1_launches())}")
+
+    zero_launches()
+    got, _, wall = run_cli(["--circuit", "log2", "--scale", "default", "--cache", cold_dir])
+    check(got["log2"].table_row() == res["log2"].table_row(),
+          f"CLI cold log2 row {got['log2'].table_row()} != phase 2's")
+    check(all(A.TIER_LAUNCHES[w] > 0 for w in (1, 32, 512)),
+          f"the cold CLI run missed a word tier: {dict(A.TIER_LAUNCHES)}")
+    print(f"CLI cold log2: row equals phase 2's in {wall:.3f} s; K1 launches "
+          f"{json.dumps(k1_launches())}")
+
+    zero_launches()
+    got, out, wall = run_cli(["--circuit", "log2", "--scale", "default", "--cache", warm_dir,
+                              "--model-sweep", "mc", "--model-variants", str(MC_VARIANTS),
+                              "--model-sigma", "0.1"])
+    var, want = got["log2"].variation, fused["log2"].variation
+    check(var.winners == want.winners, "CLI MC sweep: log2 winners != phase 3's")
+    lines = out.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("  model sweep"))
+    check(lines[start:] == yield_summary(want),
+          "CLI MC sweep: log2 yield summary != phase 3's")
+    check(k1_launches()["eval_mega"] == 0, "the warm CLI MC sweep launched K1")
+    print("\n".join(lines[start:start + 2]))
+    print(f"CLI MC sweep: log2 x {var.n_variants} variants, yield summary equals phase "
+          f"3's, in {wall:.3f} s; K1 launches {json.dumps(k1_launches())}")
+    wall = time.time() - t_phase
+    print(f"CLI phase: wall {wall:.3f} s")
+    return wall
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the chaos matrix on the card, and the journal's overhead
+# ---------------------------------------------------------------------------
+
+
+def phase_chaos():
+    """`python -m repro_torch.launch.chaos --device cuda` in process: all
+    13 scenarios must recover with parity, none skipped."""
+    from repro_torch.launch import chaos
+
+    t = time.time()
+    zero_launches()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            failures = chaos.main(["--device", "cuda"])
+    finally:
+        print(buf.getvalue(), end="")
+    text = buf.getvalue()
+    n = len(chaos._SCENARIOS)
+    check(failures == 0, f"chaos matrix: {failures} scenarios failed on the card")
+    check(f"chaos matrix: {n}/{n} scenarios recovered with parity" in text,
+          "chaos matrix: not every scenario was reported recovered")
+    check(text.count("\nok   ") == n and "skipped" not in text,
+          "chaos matrix: a scenario was skipped or not reported")
+    wall = time.time() - t
+    print(f"chaos phase: {n}/{n} scenarios recovered with parity on the card in "
+          f"{wall:.3f} s; K1 launches {json.dumps(k1_launches())}")
+    return wall
+
+
+JOURNAL_SHARD_SIZE = 2
+#: the reference's gate on the journal's machinery overhead, percent of
+#: the warm full-suite sweep (benchmarks/bench_faults.py)
+JOURNAL_GATE_PCT = 2.0
+
+
+def journal_overhead(dev, suite, cache_dir, work):
+    """The journal's machinery overhead as the reference's fault bench
+    defines it: N ``save()`` + durable-publish cycles of a real shard
+    payload through `CheckpointManager` (WAL layout, deferred snapshot,
+    the closing drain charged to the loop), divided by N, times the
+    shard count, over the median plain warm full-suite sweep (every
+    recipe, the 12 topologies, shards of two circuits)."""
+    import statistics
+
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core.sram import TOPOLOGY_LIBRARY
+    from repro_torch.core.sweep_runner import SweepRunner
+    from repro_torch.core.transforms import enumerate_recipes
+    from repro_torch.runtime import faults
+
+    recipes = enumerate_recipes()
+
+    def sweep(journal_dir):
+        t = time.perf_counter()
+        SweepRunner(journal_dir, JOURNAL_SHARD_SIZE).run(
+            suite, sram_list=TOPOLOGY_LIBRARY, recipes=recipes, cache=cache_dir,
+            n_jobs=1, device=dev,
+        )
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    sweep(None)  # warm-up
+    plain = [sweep(None) for _ in range(9)]
+    plain_s = statistics.median(plain)
+    # a real shard payload: crash a journaled sweep after two shards
+    n_shards = -(-len(suite) // JOURNAL_SHARD_SIZE)
+    journal = f"{work}/crashed"
+    with faults.injected(faults.FaultRule("sweep.shard", "raise", after=n_shards // 2)):
+        try:
+            sweep(journal)
+        except faults.FaultError:
+            pass
+        else:
+            fail("the sweep.shard fault did not stop the journaled sweep")
+    arrays, meta0 = CheckpointManager(journal).load_arrays(0)
+    payload = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+    mdir = f"{work}/machinery"
+    os.makedirs(mdir)
+    open(os.path.join(mdir, "journal.wal"), "ab").close()
+    mgr = CheckpointManager(mdir, keep_n=1 << 30, async_save=True, wal=True,
+                            defer_snapshot=True)
+    torch.cuda.synchronize()
+    n_pub, best, step = 12, float("inf"), 0
+    for _ in range(10):  # short trials, best wins (as the reference bench)
+        t = time.perf_counter()
+        for _ in range(n_pub):
+            mgr.save(step, payload, meta=meta0.get("meta", {}))
+            step += 1
+        mgr.wait()
+        best = min(best, (time.perf_counter() - t) / n_pub)
+    pct = 100.0 * best * n_shards / plain_s
+    print(
+        f"journal machinery_overhead_pct {pct:.4f} (reference gate < {JOURNAL_GATE_PCT}%): "
+        f"publish {1e3 * best:.4f} ms x {n_shards} shards over the median plain warm "
+        f"full-suite sweep {plain_s:.4f} s (sweeps "
+        + ", ".join(f"{x:.4f}" for x in plain) + " s)"
+    )
+
+
 KERNELS = {
     "eval_mega": (
         "aig_sim.eval_mega",
@@ -942,7 +1152,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
-    t0 = time.time()
+    t_start = t0 = time.time()
     logs = build.build_all()
     print(f"build s {time.time() - t0:.3f}")
     for src, log in logs.items():
@@ -950,16 +1160,22 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     times = phase_k1(dev, rng)
-    suite, cha, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
+    suite, cha, res, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
     mc, fused = phase_sweep(dev, suite, cha)
     times.update(phase_k2(dev, netlists, vectors))
-    # Phases 5-6 run after the kernel line's launch counts were taken
+    # Phases 5-8 run after the kernel line's launch counts were taken
     # (``launches`` is phase 2's); each phase sets the counts to 0 first.
     served = {n: suite[n] for n in SERVICE_CIRCUITS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         service_s = phase_service(dev, served, cha, mc, f"{tmp}/cha")
         runner_s = phase_runner(dev, served, mc, fused, f"{tmp}/cha", f"{tmp}/journal")
-    print(f"phases 5-6 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s")
+        cli_s = phase_cli(suite, cha, res, fused, f"{tmp}/cli_warm", f"{tmp}/cli_cold")
+        chaos_s = phase_chaos()
+        t = time.time()
+        journal_overhead(dev, suite, f"{tmp}/cli_warm", f"{tmp}/overhead")
+        overhead_s = time.time() - t
+    print(f"phases 5-8 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
+          f"CLI {cli_s:.3f} s, chaos {chaos_s:.3f} s, journal overhead {overhead_s:.3f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():
@@ -979,6 +1195,7 @@ def main() -> int:
                 library_ms=None,
             )
         )
+    print(f"chip_smoke wall {time.time() - t_start:.3f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(

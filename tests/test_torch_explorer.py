@@ -40,6 +40,7 @@ from repro_torch.core.sram import TOPOLOGY_LIBRARY as P_LIBRARY
 from repro_torch.core.sram import EnergyModel as PEnergyModel
 from repro_torch.kernels import aig_sim as PA
 from repro_torch.kernels import ops as POPS
+from repro_torch.launch import chaos, cim_explore
 from repro_torch.serve.explore_service import ExplorationService
 
 CPU = "cpu"
@@ -218,6 +219,8 @@ ENTRY_POINTS = {
     "ExplorationService": lambda s: ExplorationService(recipes=[("Rw",)], start=False),
     "run_sweep": lambda s: p_run_sweep(s, recipes=[("Rw",)]),
     "CheckpointManager.restore": lambda s: _saved_checkpoint().restore({"a": 0}),
+    "cim_explore.main": lambda s: cim_explore.main(["--circuit", "adder", "--scale", "tiny"]),
+    "chaos.main": lambda s: chaos.main(["-k", "disabled_is_noop"]),
 }
 
 
