@@ -63,12 +63,25 @@ and then runs these phases, failing (non-zero exit) on any error:
    then the journal's ``machinery_overhead_pct`` as the reference's
    fault bench defines it, printed beside its 2% gate (a reading, not a
    check).
+9. Workload pricing and the rCiM-vs-roofline comparison
+   (``repro_torch.launch.system``): ``compare_system`` on the card for
+   each of the 33 runnable zoo cells at published size, each record equal
+   to the same call on the CPU and its rCiM side to the scalar back half
+   (``mapping.schedule_stats`` + ``sram.evaluate`` + numpy
+   ``select_best_batch``) over the 12 topologies -- winners and
+   bottlenecks identical, fp64 within ``rtol=1e-12`` -- conserved, and
+   its bandwidth sweep's memory time strictly falling; ``evaluate_lowered``
+   in both modes and both disciplines held the same way; the three
+   primitive tiles (mac8, add16, max8) through K2 at 2**16 random
+   operands, equal to their integer arithmetic, and K2 bit-equal to its
+   plain version with either register file; one cell's CLI run
+   (``system.main``), its record equal to the phase's.
 
 Kernel times are device times of back-to-back launches; ``bound_ms``
 counts each byte a call must move once, over the card's HBM rate.
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
-build seconds, per-phase times (the K1 launches of phases 5-8 on lines of
+build seconds, per-phase times (the launches of phases 5-9 on lines of
 their own), the script's wall time, a ``{"kernels": [...]}`` JSON line
 (launch counts of phase 2) and, last, ``{"ok": true, "device": {...}}``.
 It exits non-zero without a CUDA device and when ``src/repro_torch`` is
@@ -1115,6 +1128,263 @@ def journal_overhead(dev, suite, cache_dir, work):
     )
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: workload pricing and the rCiM-vs-roofline comparison
+# ---------------------------------------------------------------------------
+
+SYSTEM_HBM_SWEEP = (4e11, 8e11, 1.6e12)
+#: operand widths of each primitive tile, in PI order
+TILE_WIDTHS = {"mac8": (8, 8, 16), "add16": (16, 16), "max8": (8, 8)}
+SYSTEM_RTOL = 1e-12
+SYSTEM_REPS = 50
+
+
+def same_record(got, want, msg: str, path: str = "") -> None:
+    """Same structure and value types; floats within ``SYSTEM_RTOL``,
+    everything else (winners, bottlenecks, counts, flags) identical."""
+    check(type(got) is type(want), f"{msg}: {path} is {type(got).__name__}, "
+                                   f"want {type(want).__name__}")
+    if isinstance(want, dict):
+        check(list(got) == list(want), f"{msg}: {path} keys {list(got)} != {list(want)}")
+        for k in want:
+            same_record(got[k], want[k], msg, f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{msg}: {path} has {len(got)} entries, want {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_record(g, w, msg, f"{path}[{i}]")
+    elif isinstance(want, float):
+        check(abs(got - want) <= SYSTEM_RTOL * abs(want),
+              f"{msg}: {path} = {got!r}, want {want!r} (rtol {SYSTEM_RTOL})")
+    else:
+        check(got == want, f"{msg}: {path} = {got!r}, want {want!r}")
+
+
+def scalar_tiles(model, mode: str, discipline: str) -> dict:
+    """Per primitive tile, the port's scalar back half over the 12
+    topologies (`mapping.schedule_stats` + `sram.evaluate`, winner by
+    the numpy `batch.select_best_batch`): ``{tile: (topology name,
+    energy nJ, latency ns)}``."""
+    import numpy as np
+    from repro_torch.core import workloads as W
+    from repro_torch.core.batch import select_best_batch
+    from repro_torch.core.mapping import schedule_stats
+    from repro_torch.core.sram import TOPOLOGY_LIBRARY, evaluate
+
+    out = {}
+    for name, stats in W.primitive_stats().items():
+        mets, fits = [], []
+        for topo in TOPOLOGY_LIBRARY:
+            sched = schedule_stats(stats, topo, discipline=discipline)
+            mets.append(evaluate(sched, topo, model, mode))
+            fits.append(sched.fits)
+        i = int(select_best_batch(np.array([[m.energy_nj for m in mets]]), np.array([fits]))[0])
+        out[name] = (TOPOLOGY_LIBRARY[i].name, float(mets[i].energy_nj),
+                     float(mets[i].latency_ns))
+    return out
+
+
+def scalar_priced(lowered, tiles, n_units: int) -> dict:
+    """What `evaluate_lowered(...).as_dict()` must give, from the scalar
+    path's tile metrics, summed per layer in `evaluate_lowered`'s order."""
+    e_nj = {p: e for p, (_, e, _) in tiles.items()}
+    t_ns = {p: t for p, (_, _, t) in tiles.items()}
+    per_layer, total_e, total_t = [], 0.0, 0.0
+    for layer in lowered.layers:
+        le = sum(n * e_nj[p] for p, n in layer.tiles.items()) * 1e-9
+        lt = sum(n * t_ns[p] for p, n in layer.tiles.items()) * 1e-9 / n_units
+        per_layer.append(dict(kind=layer.kind, count=layer.count,
+                              tiles={k: int(v) for k, v in layer.tiles.items()},
+                              energy_per_token_j=le * layer.count,
+                              latency_per_token_s=lt * layer.count))
+        total_e += le * layer.count
+        total_t += lt * layer.count
+    return dict(
+        arch=lowered.arch, shape=lowered.shape, n_units=n_units,
+        winners={p: w for p, (w, _, _) in tiles.items()}, tile_energy_nj=e_nj,
+        tile_latency_ns=t_ns,
+        tiles_per_token={k: int(v) for k, v in lowered.tiles_per_token().items()},
+        per_layer=per_layer, energy_per_token_j=total_e, latency_per_token_s=total_t,
+    )
+
+
+def tile_operands(name: str, rng):
+    """(PI bits (n_pis, N_VECTORS), expected output integers) for random
+    operands of the primitive tile ``name``."""
+    import numpy as np
+
+    widths = TILE_WIDTHS[name]
+    vals = [rng.integers(0, 1 << w, N_VECTORS, dtype=np.int64) for w in widths]
+    bits = np.concatenate([(v[None, :] >> np.arange(w)[:, None]) & 1
+                           for v, w in zip(vals, widths)]).astype(np.uint8)
+    if name == "mac8":
+        want = (vals[0] * vals[1] + vals[2]) % 65536
+    elif name == "add16":
+        want = (vals[0] + vals[1]) % 65536
+    else:
+        want = np.maximum(vals[0], vals[1])
+    return bits, want
+
+
+def profiled_device_ms(fn) -> "tuple[int, float] | None":
+    """(CUDA kernels, summed device ms) of one ``fn()`` under
+    `torch.profiler`; None where the profiler shows no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernel_us = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    return (len(kernel_us), sum(kernel_us) / 1e3) if kernel_us else None
+
+
+def phase_system(dev, rng):
+    """`launch.system.compare_system` on the card for every runnable zoo
+    cell at published size, `evaluate_lowered` in both modes and both
+    disciplines, the three tiles through K2, and one cell's CLI run."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import workloads as W
+    from repro_torch.kernels import cim_logic as K
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import system as S
+    from repro_torch.models.config import SHAPES
+
+    t_phase = time.time()
+    zero_launches()
+    cells = configs.runnable_cells()
+    check(len(cells) == 33, f"{len(cells)} runnable zoo cells, want 33")
+    tiles = scalar_tiles(None, "physical", "list")
+    recs, card_ms = {}, []
+    for arch, shape in cells:
+        t = time.perf_counter()
+        rec = S.compare_system(arch, shape, device="cuda", hbm_bw_sweep=SYSTEM_HBM_SWEEP)
+        torch.cuda.synchronize()
+        card_ms.append(1e3 * (time.perf_counter() - t))
+        msg = f"system {arch}/{shape}"
+        same_record(rec, S.compare_system(arch, shape, device="cpu",
+                                          hbm_bw_sweep=SYSTEM_HBM_SWEEP), f"{msg}: cuda != cpu")
+        lowered = W.lower_config(configs.get_config(arch), SHAPES[shape])
+        same_record(rec["rcim"], scalar_priced(lowered, tiles, 8192),
+                    f"{msg}: rcim != the scalar path")
+        check(rec["conserved"], f"{msg}: the lowering does not conserve its ops")
+        mem = rec["bw_sweep"]["memory_s"]
+        check(all(a > b for a, b in zip(mem, mem[1:])),
+              f"{msg}: bw_sweep.memory_s {mem} is not strictly decreasing")
+        json.dumps(rec)
+        recs[(arch, shape)] = rec
+    print(f"system: {len(cells)} runnable zoo cells at published size, records on the card "
+          f"equal the CPU's and the scalar path's; compare_system on the card "
+          f"{card_ms[0]:.3f} ms for the first cell, median {statistics.median(card_ms[1:]):.3f} "
+          f"ms (min {min(card_ms[1:]):.3f}, max {max(card_ms[1:]):.3f}) over the other "
+          f"{len(cells) - 1}; tile winners "
+          f"{json.dumps({p: w for p, (w, _, _) in tiles.items()})} in every cell")
+    for (arch, shape), rec in recs.items():
+        r, b = rec["rcim"], rec["baseline"]
+        print(f"  {arch} {shape}: rcim {r['energy_per_token_j']!r} J "
+              f"{r['latency_per_token_s']!r} s/token; baseline {b['energy_per_token_j']!r} J "
+              f"{b['latency_per_token_s']!r} s/token ({b['bottleneck']})")
+
+    # Both modes and both disciplines on one cell.
+    lowered = W.lower_config(configs.get_config("mamba2-780m"), SHAPES["decode_32k"])
+    for mode in ("physical", "paper"):
+        for discipline in ("list", "levels"):
+            msg = f"evaluate_lowered mamba2-780m/decode_32k {mode}/{discipline}"
+            got = W.evaluate_lowered(lowered, mode=mode, discipline=discipline,
+                                     device="cuda").as_dict()
+            same_record(got, W.evaluate_lowered(lowered, mode=mode, discipline=discipline,
+                                                device="cpu").as_dict(), f"{msg}: cuda != cpu")
+            same_record(got, scalar_priced(lowered, scalar_tiles(None, mode, discipline), 8192),
+                        f"{msg}: != the scalar path")
+            print(f"  {mode}/{discipline}: winners {json.dumps(got['winners'])}, "
+                  f"{got['energy_per_token_j']!r} J/token")
+    print("evaluate_lowered: both modes x both disciplines equal the CPU and the scalar path")
+
+    # Times of the two entry points on the card (each call ends in a
+    # device-to-host copy of its result; synchronized besides).
+    cost = S.token_cost(configs.get_config("mamba2-780m"), SHAPES["decode_32k"])
+
+    def mean_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(SYSTEM_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / SYSTEM_REPS
+
+    def lowered_call():
+        return W.evaluate_lowered(lowered, device="cuda")
+
+    def sweep_call():
+        return S.sweep_roofline(cost, hbm_bw=SYSTEM_HBM_SWEEP, device="cuda")
+
+    el_ms, sw_ms = mean_ms(lowered_call), mean_ms(sweep_call)
+    el_cpu_ms = mean_ms(lambda: W.evaluate_lowered(lowered, device="cpu"))
+    prof = profiled_device_ms(lowered_call)
+    busy = ("not measured (the profiler showed no device time)" if prof is None else
+            f"{prof[0]} CUDA kernels, {prof[1]:.4f} ms on the card "
+            f"(busy share {prof[1] / el_ms:.4f})")
+    print(f"evaluate_lowered {el_ms:.3f} ms per call on the card ({SYSTEM_REPS} calls, "
+          f"synchronized; the same call on the host CPU {el_cpu_ms:.3f} ms): {busy}; "
+          f"sweep_roofline {sw_ms:.3f} ms per call on the card")
+
+    # The slice's end check: each tile's netlist through K2 at 2**16
+    # operands, against integer arithmetic.
+    k2 = {}
+    for name in TILE_WIDTHS:
+        net = W.primitive_aigs()[name].to_gate_netlist()
+        bits, want = tile_operands(name, rng)
+        out = ops.cim_evaluate(net, bits, device=dev)
+        got = (out.astype(np.int64) << np.arange(out.shape[0])[:, None]).sum(axis=0)
+        check(np.array_equal(got, want), f"{name} tile on K2: wrong outputs")
+        k2[name] = (net, bits)
+    launches = dict(K.LAUNCHES)
+    check(launches["cim"] == len(TILE_WIDTHS), f"K2 launches in phase 9: {launches}")
+    print(f"tiles on K2: mac8 (a*b + acc) mod 2^16, add16 (a + b) mod 2^16, max8 max(a, b) "
+          f"exact at {N_VECTORS} random operands each; K2 launches {json.dumps(launches)}")
+    for name, (net, bits) in k2.items():
+        cc = ops.compile_netlist(net)
+        planes, bw = ops.cim_planes(cc, ref.pack_vectors(bits))
+        args = (torch.from_numpy(cc.instrs).to(dev), torch.from_numpy(planes).to(dev))
+        kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw)
+        want = K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos)
+        same("cim", K.cim_call(*args, **kw), want, f"K2 on the {name} tile")
+        with global_memory(K):
+            same("cim", K.cim_call(*args, **kw), want, f"K2 (global register file) on {name}")
+        ms = cuda_ms(lambda: K.cim_call(*args, **kw), 20)
+        with global_memory(K):
+            glob_ms = cuda_ms(lambda: K.cim_call(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos), 1)
+        moved = nbytes(args[0]) + (len(cc.pi_rows) + 2 + cc.n_pos) * planes.shape[1] * 4
+        print(f"  {name}: n_gates {cc.n_gates}, n_rows_p {planes.shape[0]}, K2 {ms:.4f} "
+              f"ms/launch (global register file {glob_ms:.4f} ms; plain {plain_ms:.3f} ms; "
+              f"bound {moved / HBM_BYTES_PER_S * 1e3:.6f} ms for {moved} bytes); "
+              "bit-equal to plain")
+
+    # One cell's CLI run in process, on the card.
+    arch, shape = "gemma3-27b", "decode_32k"
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rec = S.main(["--arch", arch, "--shape", shape, "--device", "cuda", "--hbm-sweep",
+                      *map(str, SYSTEM_HBM_SWEEP)])
+    cli_s = time.perf_counter() - t
+    check(rec == recs[(arch, shape)], f"CLI {arch}/{shape}: record != phase 9's")
+    check(json.loads(buf.getvalue()) == rec, f"CLI {arch}/{shape}: printed != returned")
+    wall = time.time() - t_phase
+    print(f"system CLI: {arch} {shape} record equals phase 9's in {cli_s:.3f} s")
+    print(f"system phase: wall {wall:.3f} s")
+    return wall
+
+
 KERNELS = {
     "eval_mega": (
         "aig_sim.eval_mega",
@@ -1163,7 +1433,7 @@ def main() -> int:
     suite, cha, res, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
     mc, fused = phase_sweep(dev, suite, cha)
     times.update(phase_k2(dev, netlists, vectors))
-    # Phases 5-8 run after the kernel line's launch counts were taken
+    # Phases 5-9 run after the kernel line's launch counts were taken
     # (``launches`` is phase 2's); each phase sets the counts to 0 first.
     served = {n: suite[n] for n in SERVICE_CIRCUITS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1174,8 +1444,10 @@ def main() -> int:
         t = time.time()
         journal_overhead(dev, suite, f"{tmp}/cli_warm", f"{tmp}/overhead")
         overhead_s = time.time() - t
-    print(f"phases 5-8 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
-          f"CLI {cli_s:.3f} s, chaos {chaos_s:.3f} s, journal overhead {overhead_s:.3f} s")
+    system_s = phase_system(dev, rng)
+    print(f"phases 5-9 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
+          f"CLI {cli_s:.3f} s, chaos {chaos_s:.3f} s, journal overhead {overhead_s:.3f} s, "
+          f"system {system_s:.3f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

@@ -289,3 +289,68 @@ def test_deferred_snapshot_of_device_tensors_restores_bit_equal(cuda_device, tmp
                          (tree["f32"], tree["bf16"], tree["fp8"], tree["i64"], tree["s"][0])):
         assert got.device.type == "cuda" and got.dtype == want.dtype
         assert got.shape == want.shape and torch.equal(_bits(got), _bits(want))
+
+
+#: operand widths of each primitive tile of `core.workloads`, in PI order
+TILE_WIDTHS = {"mac8": (8, 8, 16), "add16": (16, 16), "max8": (8, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TILE_WIDTHS))
+def test_workload_tiles_on_k2(cuda_device, name, monkeypatch):
+    """Each primitive tile's netlist through K2 at 2**16 random operands
+    computes its integer function, with one launch, and K2 is bit-equal
+    to its plain version with either register file."""
+    from repro_torch.core import workloads as W
+
+    rng = np.random.default_rng(17)
+    vals = [rng.integers(0, 1 << w, 1 << 16, dtype=np.int64) for w in TILE_WIDTHS[name]]
+    bits = np.concatenate([(v[None, :] >> np.arange(w)[:, None]) & 1
+                           for v, w in zip(vals, TILE_WIDTHS[name])]).astype(np.uint8)
+    want = {"mac8": lambda a, b, acc: (a * b + acc) % 65536,
+            "add16": lambda a, b: (a + b) % 65536,
+            "max8": np.maximum}[name](*vals)
+    net = W.primitive_aigs()[name].to_gate_netlist()
+    before = K.LAUNCHES["cim"]
+    out = ops.cim_evaluate(net, bits, device=cuda_device)
+    assert K.LAUNCHES["cim"] == before + 1
+    got = (out.astype(np.int64) << np.arange(out.shape[0])[:, None]).sum(axis=0)
+    np.testing.assert_array_equal(got, want)
+    cc = ops.compile_netlist(net)
+    planes, bw = ops.cim_planes(cc, ref.pack_vectors(bits))
+    args = (torch.from_numpy(cc.instrs).to(cuda_device), torch.from_numpy(planes).to(cuda_device))
+    kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw)
+    plain = K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos)
+    assert torch.equal(K.cim_call(*args, **kw), plain)
+    monkeypatch.setattr(K, "MAX_SHARED_BYTES", 0)
+    assert torch.equal(K.cim_call(*args, **kw), plain)
+
+
+@pytest.mark.cuda
+def test_evaluate_lowered_and_compare_system_on_card_equal_cpu(cuda_device):
+    """One zoo cell priced on the card and on the CPU: the same winners
+    and bottleneck, every fp64 number within rtol=1e-12."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import workloads as W
+    from repro_torch.launch import system as S
+    from repro_torch.models.config import SHAPES
+
+    lowered = W.lower_config(get_config("gemma3-27b"), SHAPES["decode_32k"])
+    for mode, discipline in (("physical", "list"), ("paper", "levels")):
+        gpu = W.evaluate_lowered(lowered, mode=mode, discipline=discipline, device=cuda_device)
+        cpu = W.evaluate_lowered(lowered, mode=mode, discipline=discipline, device="cpu")
+        assert gpu.winners == cpu.winners
+        for k in ("tile_energy_nj", "tile_latency_ns"):
+            np.testing.assert_allclose([getattr(gpu, k)[p] for p in cpu.winners],
+                                       [getattr(cpu, k)[p] for p in cpu.winners], rtol=1e-12)
+        np.testing.assert_allclose(gpu.energy_per_token_j, cpu.energy_per_token_j, rtol=1e-12)
+        np.testing.assert_allclose(gpu.latency_per_token_s, cpu.latency_per_token_s, rtol=1e-12)
+    sweep = (4e11, 8e11, 1.6e12)
+    gpu = S.compare_system("gemma3-27b", "decode_32k", hbm_bw_sweep=sweep, device=cuda_device)
+    cpu = S.compare_system("gemma3-27b", "decode_32k", hbm_bw_sweep=sweep, device="cpu")
+    assert gpu["baseline"]["bottleneck"] == cpu["baseline"]["bottleneck"]
+    assert gpu["bw_sweep"]["bottleneck"] == cpu["bw_sweep"]["bottleneck"]
+    for k in ("compute_s", "memory_s", "collective_s", "token_s"):
+        np.testing.assert_allclose(gpu["bw_sweep"][k], cpu["bw_sweep"][k], rtol=1e-12)
+    np.testing.assert_allclose(gpu["energy_ratio_rcim_over_accel"],
+                               cpu["energy_ratio_rcim_over_accel"], rtol=1e-12)
