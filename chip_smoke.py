@@ -76,12 +76,30 @@ and then runs these phases, failing (non-zero exit) on any error:
    operands, equal to their integer arithmetic, and K2 bit-equal to its
    plain version with either register file; one cell's CLI run
    (``system.main``), its record equal to the phase's.
+10. The LM serving path of the dense family (``repro_torch.models``,
+   ``serve.engine``, ``launch.serve llm``), random weights from seed 0,
+   TF32 off: (a) minicpm-2b at published size in bf16 served as
+   ``launch.serve llm`` serves it (two waves of 4 requests, prompts of
+   32-128 tokens left-padded to 128, 32 new tokens), twice: every token
+   in the vocab, finite logits, the same tokens both times; prefill ms
+   per wave, decode ms per step and tokens/s beside the decode step's
+   bytes bound; (b) its fp32 decode (batch 2, prompt 128, 32 steps)
+   against the teacher-forced forward on the card; (c) depth 2 at full
+   width, fp32, the card against the CPU from one CPU init (prefill
+   logits, aligned caches, 16 teacher-forced decode steps); (d)
+   gemma3-27b at published width and one pattern period of depth (five
+   ``local`` layers, one ``attn``), fp32, prompt 1,088 > window 1,024
+   (ring rotated by 64), 64 decode steps against the forward; (e)
+   ``python -m repro_torch.launch.serve llm --preset 100m`` in process.
+   Tolerances: the reference's 2e-3 (prefill) and 5e-3 (decode) on the
+   logits, 1e-3 of their scale on the caches.  The path launches
+   neither K1 nor K2.
 
 Kernel times are device times of back-to-back launches; ``bound_ms``
 counts each byte a call must move once, over the card's HBM rate.
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
-build seconds, per-phase times (the launches of phases 5-9 on lines of
+build seconds, per-phase times (the launches of phases 5-10 on lines of
 their own), the script's wall time, a ``{"kernels": [...]}`` JSON line
 (launch counts of phase 2) and, last, ``{"ok": true, "device": {...}}``.
 It exits non-zero without a CUDA device and when ``src/repro_torch`` is
@@ -1385,6 +1403,305 @@ def phase_system(dev, rng):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the LM serving path (dense family) on the card
+# ---------------------------------------------------------------------------
+
+#: (a): minicpm-2b at published size, bf16, served as `launch.serve llm`
+#: serves (q_chunk = kv_chunk = 64, greedy): two waves of 4 requests,
+#: prompts of 32-128 tokens left-padded to 128, 32 new tokens each
+LLM_ARCH = "minicpm-2b"
+LLM_BATCH, LLM_REQUESTS, LLM_PROMPT_PAD, LLM_MAX_NEW = 4, 8, 128, 32
+LLM_CHUNK = 64
+#: the reference's own tolerances of decode against forward (fp32,
+#: ``tests/test_models.py:53``): prefill logits, then each decode step
+LLM_PREFILL_ATOL, LLM_DECODE_ATOL = 2e-3, 5e-3
+#: (c): card against CPU, caches within this share of their own scale
+LLM_CACHE_RTOL = 1e-3
+
+
+def free() -> None:
+    """Give a freed model's device memory back before the next is built."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llm_model(cfg, dev, dtype, generator=None):
+    """`Model` as `launch.serve llm` builds it, random-initialized from
+    ``generator`` (seed 0 on ``dev`` by default)."""
+    import torch
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.models.model import Model
+
+    m = Model(cfg, ParallelConfig(), compute_dtype=dtype, q_chunk=LLM_CHUNK,
+              kv_chunk=LLM_CHUNK, device=dev)
+    return m.init(generator or torch.Generator(device=dev).manual_seed(0))
+
+
+def timed_steps(model, dev):
+    """Wrap the model's ``prefill`` and ``decode_step`` (instance
+    attributes, so `ServeEngine` calls them) to record each call's
+    milliseconds, synchronized on both sides, and count non-finite
+    logits on the device after the clock stops."""
+    import torch
+
+    rec = dict(prefill=[], decode=[], bad=torch.zeros((), dtype=torch.int64, device=dev))
+
+    def wrap(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = fn(*args)
+            torch.cuda.synchronize()
+            rec[key].append(1e3 * (time.perf_counter() - t))
+            rec["bad"] += (~torch.isfinite(logits)).sum()
+            return logits, caches
+        return run
+
+    model.prefill = wrap(model.prefill, "prefill")
+    model.decode_step = wrap(model.decode_step, "decode")
+    return rec
+
+
+def llm_serve(dev, cfg):
+    """(a): two serves of the same 8 requests at published size, bf16."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t = time.perf_counter()
+    model = llm_model(cfg, dev, torch.bfloat16).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()), "params not bf16")
+    max_seq = LLM_PROMPT_PAD + LLM_MAX_NEW
+    engine = ServeEngine(model, batch=LLM_BATCH, max_seq=max_seq, temperature=0.0, device=dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, LLM_PROMPT_PAD + 1, size=LLM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        rec = timed_steps(model, dev)
+        reqs = [Request(uid=i, prompt=p, max_new=LLM_MAX_NEW) for i, p in enumerate(prompts)]
+        t = time.perf_counter()
+        done = engine.serve(reqs, prompt_pad=LLM_PROMPT_PAD)
+        rec["wall_s"] = time.perf_counter() - t
+        rec["tokens"] = np.array([r.out_tokens for r in done])
+        del model.prefill, model.decode_step  # back to the class's methods
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        runs.append(rec)
+    for i, rec in enumerate(runs):
+        toks = rec["tokens"]
+        check(toks.shape == (LLM_REQUESTS, LLM_MAX_NEW), f"serve {i}: tokens {toks.shape}")
+        check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
+              f"serve {i}: a token outside [0, {cfg.vocab_size})")
+        check(int(rec["bad"]) == 0, f"serve {i}: {int(rec['bad'])} non-finite logits")
+    check(np.array_equal(runs[0]["tokens"], runs[1]["tokens"]),
+          "a second serve of the same requests returned other tokens")
+
+    # decode bytes bound: every param once, the valid KV entries of every
+    # layer (positions 0..pos), the logits written; mean over the steps
+    hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    kv_bytes = [2 * cfg.n_layers * LLM_BATCH * (pos + 1) * kv * hd * 2
+                for pos in range(LLM_PROMPT_PAD, max_seq - 1)]
+    step_bytes = param_bytes + statistics.mean(kv_bytes) + LLM_BATCH * cfg.padded_vocab * 2
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    n_tok = int(runs[1]["tokens"].size)
+    print(f"llm (a) {cfg.name} at published size: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+          f"{cfg.padded_vocab}; {n_params} params ({param_bytes} B in bf16), init + cast "
+          f"{init_s:.3f} s; {LLM_REQUESTS} requests in {len(runs[1]['prefill'])} waves of "
+          f"{LLM_BATCH}, prompts {sorted(lens.tolist())} left-padded to {LLM_PROMPT_PAD}, "
+          f"{LLM_MAX_NEW} new tokens each; every token in [0, {cfg.vocab_size}), logits "
+          f"finite, the second serve's tokens equal the first's")
+    for i, rec in enumerate(runs):
+        dec = rec["decode"]
+        print(f"  serve {i + 1}: prefill ms per wave "
+              f"{', '.join(f'{x:.3f}' for x in rec['prefill'])}; decode ms per step p50 "
+              f"{statistics.median(dec):.3f} max {max(dec):.3f} min {min(dec):.3f} over "
+              f"{len(dec)} steps; {n_tok} tokens in {rec['wall_s']:.3f} s = "
+              f"{n_tok / rec['wall_s']:.1f} tokens/s")
+    p50 = statistics.median(runs[1]["decode"])
+    print(f"  decode bytes bound {bound_ms:.4f} ms ({step_bytes:.0f} B a step: params "
+          f"{param_bytes}, KV read {statistics.mean(kv_bytes):.0f} mean, logits "
+          f"{LLM_BATCH * cfg.padded_vocab * 2}); steady p50 is {p50 / bound_ms:.2f}x the bound; "
+          f"peak device memory {runs[1]['peak_bytes']} B")
+
+    # Device time of one wave's prefill and of its first decode step under
+    # the profiler, against the host-clock times above.
+    from repro_torch.serve.engine import align_prefill_caches
+
+    wave = np.zeros((LLM_BATCH, LLM_PROMPT_PAD), np.int32)
+    for i, p in enumerate(prompts[:LLM_BATCH]):
+        wave[i, LLM_PROMPT_PAD - len(p):] = p
+    tt = torch.as_tensor(wave, dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        logits, caches = model.prefill(dict(tokens=tt))
+        caches = align_prefill_caches(model, caches, LLM_PROMPT_PAD, max_seq, LLM_BATCH)
+        tok = logits.argmax(-1)
+        pre = profiled_device_ms(lambda: model.prefill(dict(tokens=tt)))
+        step = profiled_device_ms(lambda: model.decode_step(caches, tok, LLM_PROMPT_PAD))
+    p50_pre = statistics.median(runs[1]["prefill"])
+    for what, prof, host_ms in (("prefill of one wave", pre, p50_pre), ("decode step", step, p50)):
+        if prof is None:
+            print(f"  profiler: no device events for the {what}: not measured")
+            continue
+        n, dev_ms = prof
+        print(f"  profiler, {what}: {n} CUDA kernels, {dev_ms:.3f} ms on the card against "
+              f"{host_ms:.3f} ms on the host clock (busy share {dev_ms / host_ms:.4f})")
+    del engine, model
+    free()
+
+
+def decode_vs_forward(model, toks, plen, dev):
+    """Prefill ``toks[:, :plen]``, align, decode the rest teacher-forced;
+    the worst |decode - forward| of the prefill logits and of the steps,
+    and the forward logits' largest magnitude."""
+    import torch
+    from repro_torch.serve.engine import align_prefill_caches
+
+    b, s = toks.shape
+    tt = torch.as_tensor(toks, dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        full, _ = model.forward(dict(tokens=tt))
+        last, caches = model.prefill(dict(tokens=tt[:, :plen]))
+        caches = align_prefill_caches(model, caches, plen, s, batch=b)
+        pre = float((last - full[:, plen - 1]).abs().max())
+        worst = torch.zeros((), device=dev)
+        for t in range(plen, s):
+            logits, caches = model.decode_step(caches, tt[:, t], t)
+            worst = torch.maximum(worst, (logits - full[:, t]).abs().max())
+        v = model.cfg.vocab_size
+        return pre, float(worst), float(full[..., :v].abs().max())
+
+
+def llm_decode_checks(dev, cfg, rng):
+    """(b) at published size and (d) the ring cache at published width,
+    fp32: decode against the teacher-forced forward on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.train import build_model_config
+
+    gemma = dataclasses.replace(build_model_config("gemma3-27b", "full"), n_layers=6)
+    cases = [("(b)", cfg, 2, 128, 32), ("(d)", gemma, 1, 1088, 64)]
+    for tag, c, b, plen, steps in cases:
+        t = time.perf_counter()
+        model = llm_model(c, dev, torch.float32)
+        toks = rng.integers(0, c.vocab_size, (b, plen + steps))
+        pre, worst, scale = decode_vs_forward(model, toks, plen, dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        kinds = "".join(k[0] for k in model.kinds)
+        del model
+        free()
+        print(f"llm {tag} {c.name} fp32, {c.n_layers} layers ({kinds}), d_model {c.d_model}, "
+              f"{n_params} params, window {c.window}: batch {b}, prompt {plen}, {steps} "
+              f"decode steps against the teacher-forced forward over {plen + steps} tokens: "
+              f"worst |diff| prefill {pre:.3e} (tol {LLM_PREFILL_ATOL}), decode {worst:.3e} "
+              f"(tol {LLM_DECODE_ATOL}); max |logit| {scale:.4f}; "
+              f"{time.perf_counter() - t:.3f} s")
+        check(pre <= LLM_PREFILL_ATOL, f"llm {tag}: prefill logits {pre} off the forward's")
+        check(worst <= LLM_DECODE_ATOL, f"llm {tag}: decode logits {worst} off the forward's")
+
+
+def llm_card_vs_cpu(dev, cfg, rng):
+    """(c): full width at depth 2, fp32, one CPU init copied to the card:
+    prefill logits, aligned caches and 16 teacher-forced decode steps."""
+    import dataclasses
+
+    import torch
+    from repro_torch.serve.engine import align_prefill_caches
+
+    t0 = time.perf_counter()
+    c = dataclasses.replace(cfg, n_layers=2)
+    cpu = torch.device("cpu")
+    host = llm_model(c, cpu, torch.float32, torch.Generator().manual_seed(0))
+    card = llm_model(c, dev, torch.float32)
+    card.load_state_dict(host.state_dict())
+    b, plen, steps = 2, 64, 16
+    toks = rng.integers(0, c.vocab_size, (b, plen + steps))
+    out = {}
+    for name, m in (("cpu", host), ("card", card)):
+        tt = torch.as_tensor(toks, dtype=torch.int64, device=m.device)
+        with torch.inference_mode():
+            last, caches = m.prefill(dict(tokens=tt[:, :plen]))
+            caches = align_prefill_caches(m, caches, plen, plen + steps, batch=b)
+            aligned = [{k: x.to("cpu", copy=True) for k, x in layer.items()}
+                       for layer in caches]  # decode_step writes in place
+            logits = [last.cpu()]
+            for t in range(plen, plen + steps):
+                lg, caches = m.decode_step(caches, tt[:, t], t)
+                logits.append(lg.cpu())
+        out[name] = (torch.stack(logits), aligned)
+    (lg_cpu, c_cpu), (lg_card, c_card) = out["cpu"], out["card"]
+    pre = float((lg_card[0] - lg_cpu[0]).abs().max())
+    worst = float((lg_card[1:] - lg_cpu[1:]).abs().max())
+    cache_rel = max(float((x[k] - y[k]).abs().max() / y[k].abs().max())
+                    for x, y in zip(c_card, c_cpu) for k in ("k", "v"))
+    scale = float(lg_cpu[..., :c.vocab_size].abs().max())
+    print(f"llm (c) {c.name} fp32 at depth {c.n_layers}, full width, card against CPU (one "
+          f"CPU init): batch {b}, prompt {plen}, {steps} teacher-forced decode steps: worst "
+          f"|card - cpu| prefill {pre:.3e} (tol {LLM_PREFILL_ATOL}), decode {worst:.3e} (tol "
+          f"{LLM_DECODE_ATOL}), aligned caches {cache_rel:.3e} of their scale (tol "
+          f"{LLM_CACHE_RTOL}); max |logit| {scale:.4f}; {time.perf_counter() - t0:.3f} s")
+    check(pre <= LLM_PREFILL_ATOL, f"llm (c): prefill logits card vs cpu {pre}")
+    check(worst <= LLM_DECODE_ATOL, f"llm (c): decode logits card vs cpu {worst}")
+    check(cache_rel <= LLM_CACHE_RTOL, f"llm (c): aligned caches card vs cpu {cache_rel}")
+    del host, card
+    free()
+
+
+def phase_llm(dev, rng):
+    """The LM serving path of the dense family on the card: (a) minicpm-2b
+    served at published size in bf16, (b) its decode against the forward
+    in fp32, (c) card against CPU at depth 2, (d) gemma3-27b's ring cache
+    at published width, (e) `launch.serve llm --preset 100m` in process.
+    The path launches neither K1 nor K2 (their counts stay 0)."""
+    import torch
+    from repro_torch.kernels import aig_sim as A
+    from repro_torch.kernels import cim_logic as K
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.train import build_model_config
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 matmuls are on: the fp32 checks would not be fp32")
+    t_phase = time.time()
+    zero_launches()
+    cfg = build_model_config(LLM_ARCH, "full")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size, cfg.padded_vocab)
+          == (40, 2304, 36, 5760, 122_753, 122_880), f"{LLM_ARCH}: not the published size")
+    llm_serve(dev, cfg)
+    llm_decode_checks(dev, cfg, rng)
+    llm_card_vs_cpu(dev, cfg, rng)
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["llm", "--preset", "100m", "--device", dev.type])
+    lines = buf.getvalue().splitlines()
+    check(lines and lines[0].startswith("served 8 requests, 128 tokens in "),
+          f"llm (e): the CLI printed {lines[:1]}")
+    print(f"llm (e) `python -m repro_torch.launch.serve llm --preset 100m --device "
+          f"{dev.type}` in process, {time.perf_counter() - t:.3f} s: {lines[0]}")
+    free()
+    launched = {**A.LAUNCHES, **K.LAUNCHES}
+    check(not any(launched.values()), f"the LM path launched a K1/K2 kernel: {launched}")
+    wall = time.time() - t_phase
+    print(f"llm phase: wall {wall:.3f} s; K1/K2 launches {json.dumps(launched)}")
+    return wall
+
+
 KERNELS = {
     "eval_mega": (
         "aig_sim.eval_mega",
@@ -1433,7 +1750,7 @@ def main() -> int:
     suite, cha, res, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
     mc, fused = phase_sweep(dev, suite, cha)
     times.update(phase_k2(dev, netlists, vectors))
-    # Phases 5-9 run after the kernel line's launch counts were taken
+    # Phases 5-10 run after the kernel line's launch counts were taken
     # (``launches`` is phase 2's); each phase sets the counts to 0 first.
     served = {n: suite[n] for n in SERVICE_CIRCUITS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1445,9 +1762,10 @@ def main() -> int:
         journal_overhead(dev, suite, f"{tmp}/cli_warm", f"{tmp}/overhead")
         overhead_s = time.time() - t
     system_s = phase_system(dev, rng)
-    print(f"phases 5-9 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
+    llm_s = phase_llm(dev, rng)
+    print(f"phases 5-10 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
           f"CLI {cli_s:.3f} s, chaos {chaos_s:.3f} s, journal overhead {overhead_s:.3f} s, "
-          f"system {system_s:.3f} s")
+          f"system {system_s:.3f} s, LM serving {llm_s:.3f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

@@ -1,12 +1,22 @@
-"""Serving launcher of the port: the rCiM exploration service.
+"""Serving launchers of the port.
 
-``explore`` spins up `serve.explore_service.ExplorationService` (a warm
+Two subcommands share this entry point, both on ``--device`` (default
+``cuda``; raises without a card unless ``--device cpu``):
+
+  * ``llm`` -- batched generation with the slot-based `serve.engine`
+    (also the default when no subcommand is given, as in the reference);
+  * ``explore`` -- the rCiM exploration service.
+
+``llm`` builds the model from random weights (seed 0), casts them to
+bf16, and serves ``--requests`` random prompts.  ``explore`` spins up `serve.explore_service.ExplorationService` (a warm
 persistent query engine on ``--device``, default ``cuda``), streams
 design queries at it, and prints per-request winners and service-time
 percentiles.
 
 Examples::
 
+    python -m repro_torch.launch.serve llm --preset 100m
+    python -m repro_torch.launch.serve llm --device cpu --preset smoke
     python -m repro_torch.launch.serve explore --scale tiny --requests 16
     python -m repro_torch.launch.serve explore --circuits adder,max \\
         --max-memory-kb 96 --max-latency-ns 400 --sweep mc --variants 8
@@ -18,6 +28,43 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+
+def _main_llm(args: argparse.Namespace) -> None:
+    import numpy as np
+    import torch
+
+    from ..device import resolve_device
+    from ..models.config import ParallelConfig
+    from ..models.model import Model
+    from ..serve.engine import Request, ServeEngine
+    from .train import build_model_config
+
+    dev = resolve_device(args.device)
+    cfg = build_model_config(args.arch, args.preset)
+    model = Model(cfg, ParallelConfig(), q_chunk=64, kv_chunk=64, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    model.to(torch.bfloat16)
+
+    engine = ServeEngine(model, batch=args.batch,
+                         max_seq=args.prompt_len + args.max_new,
+                         temperature=args.temperature, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [
+        Request(uid=i,
+                prompt=rng.integers(0, cfg.vocab_size, size=(args.prompt_len,)).astype(np.int32),
+                max_new=args.max_new)
+        for i in range(args.requests)
+    ]
+    t0 = time.time()
+    done = engine.serve(reqs, prompt_pad=args.prompt_len)
+    dt = time.time() - t0
+    n_tok = sum(len(r.out_tokens) for r in done)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
+    print(f"served {len(done)} requests, {n_tok} tokens in {dt:.1f}s "
+          f"({n_tok/dt:.1f} tok/s on {where})")
+    for r in done[:3]:
+        print(f"  req {r.uid}: {[int(t) for t in r.out_tokens[:8]]}...")
 
 
 def _main_explore(args: argparse.Namespace) -> None:
@@ -94,8 +141,24 @@ def _main_explore(args: argparse.Namespace) -> None:
 
 def main(argv: "list[str] | None" = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
+    # As in the reference: a bare `python -m repro_torch.launch.serve
+    # --batch 4` routes to the LLM launcher.
+    if not argv or argv[0] not in {"llm", "explore"} and argv[0] not in {"-h", "--help"}:
+        argv = ["llm"] + argv
+
     ap = argparse.ArgumentParser(description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    llm = sub.add_parser("llm", help="batched LLM generation engine")
+    llm.add_argument("--arch", default="minicpm-2b")
+    llm.add_argument("--preset", choices=["smoke", "100m"], default="smoke")
+    llm.add_argument("--batch", type=int, default=4)
+    llm.add_argument("--prompt-len", type=int, default=32)
+    llm.add_argument("--max-new", type=int, default=16)
+    llm.add_argument("--requests", type=int, default=8)
+    llm.add_argument("--temperature", type=float, default=0.0)
+    llm.add_argument("--device", default="cuda",
+                     help="cuda (default; raises without a card) or cpu")
 
     ex = sub.add_parser(
         "explore", help="warm persistent rCiM exploration service"
@@ -120,7 +183,10 @@ def main(argv: "list[str] | None" = None) -> None:
                     help="cuda (default; raises without a card) or cpu")
 
     args = ap.parse_args(argv)
-    _main_explore(args)
+    if args.cmd == "explore":
+        _main_explore(args)
+    else:
+        _main_llm(args)
 
 
 if __name__ == "__main__":

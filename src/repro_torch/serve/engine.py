@@ -1,0 +1,143 @@
+"""Batched serving engine of the port: prefill + decode with cache management.
+
+Handles the cache-layout plumbing between the two phases:
+  * global-attention caches are padded from prompt length to max_seq,
+  * local-attention ring caches are rotated so entry i holds absolute
+    position p with p === i (mod window) -- the invariant decode_step's
+    ring addressing relies on.
+
+The caches are one ``{k, v}`` dict per layer, and `align_prefill_caches`
+picks pad-or-rotate from each layer's kind, never from shapes: a
+window-full ring cache has the SAME shape as its allocation but still
+needs rotation whenever prompt_len % window != 0.
+
+A lightweight slot-based batcher (continuous-batching lite) serves
+variable-length requests on a fixed batch of decode slots.  Prompts are
+left-padded with token 0 and the pads are attended (they hold positions
+0..pad-1), as in the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..models.model import Model
+
+
+def align_prefill_caches(model: Model, caches: list[dict], prompt_len: int,
+                         max_seq: int, batch: int) -> list[dict]:
+    """Pad / rotate prefill caches into decode layout (see module doc)."""
+    window = model.cfg.window
+    out = []
+    for kind, cache in zip(model.kinds, caches):
+        tgt_len = model.cache_len(kind, max_seq)
+        ring = kind == "local" and window and tgt_len == window and prompt_len >= window
+        fixed = {}
+        for name, pre in cache.items():
+            if pre.shape[0] != batch:
+                raise ValueError(f"cache {name}: batch {pre.shape[0]} != {batch}")
+            cur = pre.shape[1]
+            t = pre if cur == tgt_len else F.pad(pre, (0, 0, 0, 0, 0, tgt_len - cur))
+            if ring and prompt_len % window:
+                # full ring: rotate so abs position p sits at slot p % window
+                t = torch.roll(t, prompt_len % window, dims=1)
+            fixed[name] = t
+        out.append(fixed)
+    return out
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray  # (L,) int32
+    max_new: int = 32
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Fixed-batch prefill/decode engine with greedy or temperature sampling.
+
+    ``device`` defaults to ``cuda`` (raising without a card unless
+    ``"cpu"`` is asked for) and must be the model's.  Sampling at
+    ``temperature > 0`` draws from a `torch.Generator` seeded with
+    ``seed`` on that device.
+    """
+
+    def __init__(self, model: Model, batch: int, max_seq: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 device: "str | torch.device | None" = None):
+        dev = resolve_device(device)
+        if model.device.type != dev.type:
+            raise ValueError(f"the model lives on {model.device}, the engine on {dev}")
+        self.model = model
+        self.device = model.device
+        self.batch = batch
+        self.max_seq = max_seq
+        self.temperature = temperature
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator)[:, 0]
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
+        """prompts: (B, L) int32 (padded to equal length).  Returns (B, max_new).
+
+        One host sync per step: the read-back of that step's tokens."""
+        b, plen = prompts.shape
+        if b != self.batch:
+            raise ValueError(f"prompts carry {b} rows for a batch of {self.batch}")
+        tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
+        logits, caches = self.model.prefill(dict(tokens=tokens))
+        caches = align_prefill_caches(self.model, caches, plen, self.max_seq, batch=b)
+
+        out = np.zeros((b, max_new), np.int32)
+        tok = self._sample(logits)
+        for t in range(max_new):
+            out[:, t] = tok.cpu().numpy()
+            if t == max_new - 1:
+                break
+            logits, caches = self.model.decode_step(caches, tok, plen + t)
+            tok = self._sample(logits)
+        return out
+
+    # -- slot-based continuous batching (lite) -------------------------------
+
+    def serve(self, requests: list[Request], prompt_pad: int) -> list[Request]:
+        """Serve a request list on ``self.batch`` slots, refilling slots as
+        requests finish (waves of prefill + shared decode steps).
+
+        Every prompt must satisfy ``1 <= len(prompt) <= prompt_pad``; a
+        violating request raises `ValueError` up front (naming the uid)
+        rather than surfacing as a numpy broadcast error mid-wave.
+        """
+        for r in requests:
+            if not 0 < len(r.prompt) <= prompt_pad:
+                raise ValueError(
+                    f"request uid={r.uid}: prompt length {len(r.prompt)} "
+                    f"must be in [1, prompt_pad={prompt_pad}]"
+                )
+        queue = list(requests)
+        done: list[Request] = []
+        while queue:
+            wave = queue[: self.batch]
+            queue = queue[len(wave):]
+            prompts = np.zeros((self.batch, prompt_pad), np.int32)
+            for i, r in enumerate(wave):
+                prompts[i, prompt_pad - len(r.prompt):] = r.prompt  # left-pad
+            max_new = max(r.max_new for r in wave)
+            toks = self.generate(prompts, max_new)
+            for i, r in enumerate(wave):
+                r.out_tokens = list(toks[i, : r.max_new])
+                r.done = True
+                done.append(r)
+        return done

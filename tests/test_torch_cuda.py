@@ -354,3 +354,48 @@ def test_evaluate_lowered_and_compare_system_on_card_equal_cpu(cuda_device):
         np.testing.assert_allclose(gpu["bw_sweep"][k], cpu["bw_sweep"][k], rtol=1e-12)
     np.testing.assert_allclose(gpu["energy_ratio_rcim_over_accel"],
                                cpu["energy_ratio_rcim_over_accel"], rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-27b"])
+def test_dense_lm_on_card_equals_cpu(cuda_device, arch):
+    """A dense smoke config in fp32 from one CPU init: the card's prefill
+    logits, aligned caches and 8 teacher-forced decode steps equal the
+    CPU's within 1e-4 (the logits' scale is about 1-2), and greedy
+    `ServeEngine.generate` gives the CPU's tokens (prompt 20 > gemma3's
+    smoke window 16: the ring caches are cut and rotated)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine, align_prefill_caches
+
+    def build(dev):
+        return Model(smoke_config(arch), ParallelConfig(), compute_dtype=torch.float32,
+                     q_chunk=8, kv_chunk=8, device=dev)
+
+    cpu = build("cpu").init(torch.Generator().manual_seed(0))
+    gpu = build(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    B, S, P = 2, 28, 20
+    toks = np.random.default_rng(0).integers(0, cpu.cfg.vocab_size, (B, S)).astype(np.int32)
+    got = {}
+    for name, m in (("cpu", cpu), ("gpu", gpu)):
+        tt = torch.as_tensor(toks, dtype=torch.int64, device=m.device)
+        with torch.inference_mode():
+            last, caches = m.prefill(dict(tokens=tt[:, :P]))
+            caches = align_prefill_caches(m, caches, P, S, batch=B)
+            # decode_step writes the caches in place: snapshot a copy
+            aligned = [{k: x.to("cpu", copy=True) for k, x in c.items()} for c in caches]
+            steps = [last.cpu()]
+            for t in range(P, S):
+                lg, caches = m.decode_step(caches, tt[:, t], t)
+                steps.append(lg.cpu())
+        out = ServeEngine(m, batch=B, max_seq=S, device=m.device.type).generate(
+            toks[:, :P], max_new=S - P)
+        got[name] = (torch.stack(steps), aligned, out)
+    torch.testing.assert_close(got["gpu"][0], got["cpu"][0], rtol=0, atol=1e-4)
+    for c_gpu, c_cpu in zip(got["gpu"][1], got["cpu"][1]):
+        for k in ("k", "v"):
+            torch.testing.assert_close(c_gpu[k], c_cpu[k], rtol=1e-4,
+                                       atol=1e-4 * float(c_cpu[k].abs().max()))
+    np.testing.assert_array_equal(got["gpu"][2], got["cpu"][2])

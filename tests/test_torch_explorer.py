@@ -40,7 +40,11 @@ from repro_torch.core.sram import TOPOLOGY_LIBRARY as P_LIBRARY
 from repro_torch.core.sram import EnergyModel as PEnergyModel
 from repro_torch.kernels import aig_sim as PA
 from repro_torch.kernels import ops as POPS
+from repro_torch.configs import smoke_config as p_smoke_config
 from repro_torch.launch import chaos, cim_explore
+from repro_torch.launch import serve as p_serve
+from repro_torch.models.model import Model as PModel
+from repro_torch.serve.engine import ServeEngine as PServeEngine
 from repro_torch.serve.explore_service import ExplorationService
 
 CPU = "cpu"
@@ -221,6 +225,11 @@ ENTRY_POINTS = {
     "CheckpointManager.restore": lambda s: _saved_checkpoint().restore({"a": 0}),
     "cim_explore.main": lambda s: cim_explore.main(["--circuit", "adder", "--scale", "tiny"]),
     "chaos.main": lambda s: chaos.main(["-k", "disabled_is_noop"]),
+    "Model": lambda s: PModel(p_smoke_config("minicpm-2b")),
+    "ServeEngine": lambda s: PServeEngine(
+        PModel(p_smoke_config("minicpm-2b"), device="cpu"), batch=1, max_seq=8),
+    "serve.main llm": lambda s: p_serve.main(["llm", "--preset", "smoke"]),
+    "serve.main (bare)": lambda s: p_serve.main([]),
 }
 
 
