@@ -94,12 +94,30 @@ and then runs these phases, failing (non-zero exit) on any error:
    Tolerances: the reference's 2e-3 (prefill) and 5e-3 (decode) on the
    logits, 1e-3 of their scale on the caches.  The path launches
    neither K1 nor K2.
+11. The LM serving path of the MoE and recurrent families, random
+   weights from seed 0, TF32 off: (a) deepseek-moe-16b,
+   recurrentgemma-9b and mamba2-780m at published size in bf16 (every
+   param bf16 but ``models.model.FP32_PARAMS``, which are fp32), each
+   served as in phase 10 (a), twice, with the same checks and numbers,
+   the MoE's active-param bytes and the share of its first wave's
+   routed assignments dropped at capacity; (b) fp32 decode against the
+   teacher-forced forward: mamba2-780m at published size (batch 2,
+   prompt 128, 64 steps), recurrentgemma-9b at published width over one
+   pattern period (prompt 2,112 > window 2,048, ring rotated by 64, 32
+   steps), deepseek-moe-16b at depth 3 with a dropless capacity factor
+   (64 / 6; no assignment may drop); (c) the card against the CPU at
+   full width (deepseek depth 2 at its published capacity factor 1.25,
+   batch 4 x prompt 64 with drops, its expert ids and keep masks equal
+   first; mamba2 depth 2; recurrentgemma depth 3); (d) ``launch.serve
+   llm --preset 100m`` for the four new archs (moonshot-v1-16b-a3b runs
+   on the card at this preset only).  Phase 10's tolerances; neither K1
+   nor K2 is launched.
 
 Kernel times are device times of back-to-back launches; ``bound_ms``
 counts each byte a call must move once, over the card's HBM rate.
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
-build seconds, per-phase times (the launches of phases 5-10 on lines of
+build seconds, per-phase times (the launches of phases 5-11 on lines of
 their own), the script's wall time, a ``{"kernels": [...]}`` JSON line
 (launch counts of phase 2) and, last, ``{"ok": true, "device": {...}}``.
 It exits non-zero without a CUDA device and when ``src/repro_torch`` is
@@ -1432,13 +1450,15 @@ def free() -> None:
 
 def llm_model(cfg, dev, dtype, generator=None):
     """`Model` as `launch.serve llm` builds it, random-initialized from
-    ``generator`` (seed 0 on ``dev`` by default)."""
+    ``generator`` (seed 0 on ``dev`` by default).  In bf16 each leaf is
+    drawn in fp32 and cast on its way in (`FP32_PARAMS` stay fp32), so the
+    whole model is never held in fp32."""
     import torch
     from repro_torch.models.config import ParallelConfig
     from repro_torch.models.model import Model
 
     m = Model(cfg, ParallelConfig(), compute_dtype=dtype, q_chunk=LLM_CHUNK,
-              kv_chunk=LLM_CHUNK, device=dev)
+              kv_chunk=LLM_CHUNK, device=dev, param_dtype=dtype)
     return m.init(generator or torch.Generator(device=dev).manual_seed(0))
 
 
@@ -1467,21 +1487,71 @@ def timed_steps(model, dev):
     return rec
 
 
+@contextlib.contextmanager
+def routing_log():
+    """Record every `layers.moe_route` result (one per MoE layer call) made
+    inside the block."""
+    from repro_torch.models import layers as L
+
+    seen, route = [], L.moe_route
+
+    def recording(*args):
+        seen.append(route(*args))
+        return seen[-1]
+
+    L.moe_route = recording
+    try:
+        yield seen
+    finally:
+        L.moe_route = route
+
+
+def dropped(routes) -> "tuple[int, int]":
+    """(assignments dropped at capacity, routed assignments) of ``routes``."""
+    return (sum(int((~r.keep).sum()) for r in routes), sum(r.keep.numel() for r in routes))
+
+
+def step_state_bytes(cfg, kinds, pos: int) -> "tuple[int, int]":
+    """(KV bytes read, recurrent bytes read and written) of one decode step
+    at ``pos`` over the batch: an attention layer reads its valid bf16
+    entries (positions 0..pos, at most ``window`` in a local one); a
+    recurrent layer reads and writes its bf16 conv inputs and fp32 state."""
+    kv = rec = 0
+    for kind in kinds:
+        if kind in ("attn", "local"):
+            n = min(pos + 1, cfg.window) if kind == "local" and cfg.window else pos + 1
+            kv += 2 * LLM_BATCH * n * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+        elif kind == "ssm":
+            di = cfg.d_inner or 2 * cfg.d_model
+            conv = (cfg.conv_width - 1) * (di + 2 * cfg.ssm_state) * 2
+            rec += 2 * LLM_BATCH * (conv + di * cfg.ssm_state * 4)
+        else:  # rglru
+            w = cfg.lru_width or cfg.d_model
+            rec += 2 * LLM_BATCH * ((cfg.conv_width - 1) * w * 2 + w * 4)
+    return kv, rec
+
+
 def llm_serve(dev, cfg):
-    """(a): two serves of the same 8 requests at published size, bf16."""
+    """(a): two serves of the same 8 requests at published size in bf16,
+    as `launch.serve llm` serves them."""
     import statistics
 
     import numpy as np
     import torch
+    from repro_torch.models.model import keeps_fp32
     from repro_torch.serve.engine import Request, ServeEngine
 
     t = time.perf_counter()
-    model = llm_model(cfg, dev, torch.bfloat16).to(torch.bfloat16)
+    model = llm_model(cfg, dev, torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
-    n_params = sum(p.numel() for p in model.parameters())
-    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    check(all(p.dtype == torch.bfloat16 for p in model.parameters()), "params not bf16")
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    wrong = [n for n, p in params.items()
+             if p.dtype != (torch.float32 if keeps_fp32(n) else torch.bfloat16)]
+    check(not wrong, f"{cfg.name}: params neither bf16 nor (FP32_PARAMS) fp32: {wrong[:4]}")
+    n_fp32 = sum(p.dtype == torch.float32 for p in params.values())
     max_seq = LLM_PROMPT_PAD + LLM_MAX_NEW
     engine = ServeEngine(model, batch=LLM_BATCH, max_seq=max_seq, temperature=0.0, device=dev)
     rng = np.random.default_rng(0)
@@ -1504,26 +1574,30 @@ def llm_serve(dev, cfg):
         toks = rec["tokens"]
         check(toks.shape == (LLM_REQUESTS, LLM_MAX_NEW), f"serve {i}: tokens {toks.shape}")
         check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
-              f"serve {i}: a token outside [0, {cfg.vocab_size})")
-        check(int(rec["bad"]) == 0, f"serve {i}: {int(rec['bad'])} non-finite logits")
+              f"{cfg.name} serve {i}: a token outside [0, {cfg.vocab_size})")
+        check(int(rec["bad"]) == 0, f"{cfg.name} serve {i}: {int(rec['bad'])} non-finite logits")
     check(np.array_equal(runs[0]["tokens"], runs[1]["tokens"]),
-          "a second serve of the same requests returned other tokens")
+          f"{cfg.name}: a second serve of the same requests returned other tokens")
 
-    # decode bytes bound: every param once, the valid KV entries of every
-    # layer (positions 0..pos), the logits written; mean over the steps
-    hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
-    kv_bytes = [2 * cfg.n_layers * LLM_BATCH * (pos + 1) * kv * hd * 2
-                for pos in range(LLM_PROMPT_PAD, max_seq - 1)]
-    step_bytes = param_bytes + statistics.mean(kv_bytes) + LLM_BATCH * cfg.padded_vocab * 2
+    # decode bytes bound: every param once (an MoE layer runs all its
+    # experts over their capacity slots), the valid KV entries (mean over
+    # the steps) and the recurrent states, the logits written
+    states = [step_state_bytes(cfg, model.kinds, pos)
+              for pos in range(LLM_PROMPT_PAD, max_seq - 1)]
+    kv_bytes = statistics.mean(kv for kv, _ in states)
+    rec_bytes = states[0][1]
+    logit_bytes = LLM_BATCH * cfg.padded_vocab * 2
+    step_bytes = param_bytes + kv_bytes + rec_bytes + logit_bytes
     bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     n_tok = int(runs[1]["tokens"].size)
-    print(f"llm (a) {cfg.name} at published size: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
-          f"{cfg.padded_vocab}; {n_params} params ({param_bytes} B in bf16), init + cast "
-          f"{init_s:.3f} s; {LLM_REQUESTS} requests in {len(runs[1]['prefill'])} waves of "
-          f"{LLM_BATCH}, prompts {sorted(lens.tolist())} left-padded to {LLM_PROMPT_PAD}, "
-          f"{LLM_MAX_NEW} new tokens each; every token in [0, {cfg.vocab_size}), logits "
-          f"finite, the second serve's tokens equal the first's")
+    kinds = ",".join(dict.fromkeys(model.kinds))
+    print(f"llm (a) {cfg.name} at published size: {cfg.n_layers} layers ({kinds}), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded "
+          f"to {cfg.padded_vocab}; {n_params} params ({param_bytes} B; bf16 but for "
+          f"{n_fp32} FP32_PARAMS leaves), init + cast {init_s:.3f} s; {LLM_REQUESTS} requests "
+          f"in {len(runs[1]['prefill'])} waves of {LLM_BATCH}, prompts {sorted(lens.tolist())} "
+          f"left-padded to {LLM_PROMPT_PAD}, {LLM_MAX_NEW} new tokens each; every token in "
+          f"[0, {cfg.vocab_size}), logits finite, the second serve's tokens equal the first's")
     for i, rec in enumerate(runs):
         dec = rec["decode"]
         print(f"  serve {i + 1}: prefill ms per wave "
@@ -1533,12 +1607,19 @@ def llm_serve(dev, cfg):
               f"{n_tok / rec['wall_s']:.1f} tokens/s")
     p50 = statistics.median(runs[1]["decode"])
     print(f"  decode bytes bound {bound_ms:.4f} ms ({step_bytes:.0f} B a step: params "
-          f"{param_bytes}, KV read {statistics.mean(kv_bytes):.0f} mean, logits "
-          f"{LLM_BATCH * cfg.padded_vocab * 2}); steady p50 is {p50 / bound_ms:.2f}x the bound; "
-          f"peak device memory {runs[1]['peak_bytes']} B")
+          f"{param_bytes}, KV read {kv_bytes:.0f} mean, recurrent states read + written "
+          f"{rec_bytes}, logits {logit_bytes}); steady p50 is {p50 / bound_ms:.2f}x the "
+          f"bound; peak device memory {runs[1]['peak_bytes']} B")
+    if cfg.is_moe:
+        idle = sum(p.numel() * p.element_size() for n, p in params.items()
+                   if ".moe.we_" in n) * (cfg.n_experts - cfg.top_k) // cfg.n_experts
+        print(f"  active-param bytes (not the bound: top-{cfg.top_k} of {cfg.n_experts} routed "
+              f"experts per token, shared experts, attention, embeddings) "
+              f"{param_bytes - idle}, {(param_bytes - idle) / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
     # Device time of one wave's prefill and of its first decode step under
-    # the profiler, against the host-clock times above.
+    # the profiler, against the host-clock times above; the first wave's
+    # MoE routing.
     from repro_torch.serve.engine import align_prefill_caches
 
     wave = np.zeros((LLM_BATCH, LLM_PROMPT_PAD), np.int32)
@@ -1546,11 +1627,18 @@ def llm_serve(dev, cfg):
         wave[i, LLM_PROMPT_PAD - len(p):] = p
     tt = torch.as_tensor(wave, dtype=torch.int64, device=dev)
     with torch.inference_mode():
-        logits, caches = model.prefill(dict(tokens=tt))
+        with routing_log() as routes:
+            logits, caches = model.prefill(dict(tokens=tt))
         caches = align_prefill_caches(model, caches, LLM_PROMPT_PAD, max_seq, LLM_BATCH)
         tok = logits.argmax(-1)
         pre = profiled_device_ms(lambda: model.prefill(dict(tokens=tt)))
         step = profiled_device_ms(lambda: model.decode_step(caches, tok, LLM_PROMPT_PAD))
+    if cfg.is_moe:
+        n_drop, n_routed = dropped(routes)
+        print(f"  MoE routing of the first wave's prefill: {len(routes)} MoE layers x "
+              f"{LLM_BATCH * LLM_PROMPT_PAD} tokens x top-{cfg.top_k} = {n_routed} routed "
+              f"assignments, capacity {routes[0].cap} per expert (factor "
+              f"{cfg.capacity_factor}), {n_drop} dropped ({n_drop / n_routed:.4%})")
     p50_pre = statistics.median(runs[1]["prefill"])
     for what, prof, host_ms in (("prefill of one wave", pre, p50_pre), ("decode step", step, p50)):
         if prof is None:
@@ -1585,55 +1673,57 @@ def decode_vs_forward(model, toks, plen, dev):
         return pre, float(worst), float(full[..., :v].abs().max())
 
 
-def llm_decode_checks(dev, cfg, rng):
-    """(b) at published size and (d) the ring cache at published width,
-    fp32: decode against the teacher-forced forward on the card."""
-    import dataclasses
-
+def decode_checks(dev, cases, rng):
+    """fp32 decode against the teacher-forced forward on the card, one
+    ``(tag, config, batch, prompt, steps)`` case at a time.  An MoE case
+    must drop nothing: decode equals the forward only without drops."""
     import torch
-    from repro_torch.launch.train import build_model_config
 
-    gemma = dataclasses.replace(build_model_config("gemma3-27b", "full"), n_layers=6)
-    cases = [("(b)", cfg, 2, 128, 32), ("(d)", gemma, 1, 1088, 64)]
     for tag, c, b, plen, steps in cases:
         t = time.perf_counter()
         model = llm_model(c, dev, torch.float32)
         toks = rng.integers(0, c.vocab_size, (b, plen + steps))
-        pre, worst, scale = decode_vs_forward(model, toks, plen, dev)
+        with routing_log() as routes:
+            pre, worst, scale = decode_vs_forward(model, toks, plen, dev)
         n_params = sum(p.numel() for p in model.parameters())
         kinds = "".join(k[0] for k in model.kinds)
         del model
         free()
+        n_drop, n_routed = dropped(routes)
+        moe = (f"; MoE capacity factor {c.capacity_factor:.4f}, {n_drop} of {n_routed} routed "
+               f"assignments dropped" if c.is_moe else "")
         print(f"llm {tag} {c.name} fp32, {c.n_layers} layers ({kinds}), d_model {c.d_model}, "
               f"{n_params} params, window {c.window}: batch {b}, prompt {plen}, {steps} "
               f"decode steps against the teacher-forced forward over {plen + steps} tokens: "
               f"worst |diff| prefill {pre:.3e} (tol {LLM_PREFILL_ATOL}), decode {worst:.3e} "
-              f"(tol {LLM_DECODE_ATOL}); max |logit| {scale:.4f}; "
+              f"(tol {LLM_DECODE_ATOL}); max |logit| {scale:.4f}{moe}; "
               f"{time.perf_counter() - t:.3f} s")
-        check(pre <= LLM_PREFILL_ATOL, f"llm {tag}: prefill logits {pre} off the forward's")
-        check(worst <= LLM_DECODE_ATOL, f"llm {tag}: decode logits {worst} off the forward's")
+        check(n_drop == 0, f"llm {tag} {c.name}: {n_drop} MoE assignments dropped")
+        check(pre <= LLM_PREFILL_ATOL,
+              f"llm {tag} {c.name}: prefill logits {pre} off the forward's")
+        check(worst <= LLM_DECODE_ATOL,
+              f"llm {tag} {c.name}: decode logits {worst} off the forward's")
 
 
-def llm_card_vs_cpu(dev, cfg, rng):
-    """(c): full width at depth 2, fp32, one CPU init copied to the card:
-    prefill logits, aligned caches and 16 teacher-forced decode steps."""
-    import dataclasses
-
+def card_vs_cpu(dev, c, rng, tag, b, plen, steps):
+    """Full width, fp32, one CPU init copied to the card: prefill logits,
+    aligned caches (KV, conv inputs, recurrent states) and teacher-forced
+    decode steps.  An MoE config's routing (expert ids and keep mask of
+    every MoE layer call) must be equal first; the smallest top-k margin
+    on the CPU tells a near-tie flip from a fault."""
     import torch
     from repro_torch.serve.engine import align_prefill_caches
 
     t0 = time.perf_counter()
-    c = dataclasses.replace(cfg, n_layers=2)
     cpu = torch.device("cpu")
     host = llm_model(c, cpu, torch.float32, torch.Generator().manual_seed(0))
     card = llm_model(c, dev, torch.float32)
     card.load_state_dict(host.state_dict())
-    b, plen, steps = 2, 64, 16
     toks = rng.integers(0, c.vocab_size, (b, plen + steps))
     out = {}
     for name, m in (("cpu", host), ("card", card)):
         tt = torch.as_tensor(toks, dtype=torch.int64, device=m.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), routing_log() as routes:
             last, caches = m.prefill(dict(tokens=tt[:, :plen]))
             caches = align_prefill_caches(m, caches, plen, plen + steps, batch=b)
             aligned = [{k: x.to("cpu", copy=True) for k, x in layer.items()}
@@ -1642,23 +1732,74 @@ def llm_card_vs_cpu(dev, cfg, rng):
             for t in range(plen, plen + steps):
                 lg, caches = m.decode_step(caches, tt[:, t], t)
                 logits.append(lg.cpu())
-        out[name] = (torch.stack(logits), aligned)
-    (lg_cpu, c_cpu), (lg_card, c_card) = out["cpu"], out["card"]
+        out[name] = (torch.stack(logits), aligned, routes)
+    (lg_cpu, c_cpu, r_cpu), (lg_card, c_card, r_card) = out["cpu"], out["card"]
+    moe = ""
+    if c.is_moe:
+        check(len(r_cpu) == len(r_card),
+              f"llm {tag} {c.name}: MoE calls {len(r_cpu)} != {len(r_card)}")
+        margin = min(float((p[..., c.top_k - 1] - p[..., c.top_k]).min())
+                     for p in (torch.sort(r.probs, dim=-1, descending=True).values for r in r_cpu))
+        n_moe = sum("moe" in layer for layer in host.layers)
+        n_drop, n_routed = dropped(r_cpu[:n_moe])
+        moe = (f"; routing equal in all {len(r_cpu)} MoE layer calls, smallest top-{c.top_k} "
+               f"margin on the CPU {margin:.3e}; prefill capacity {r_cpu[0].cap} (factor "
+               f"{c.capacity_factor}), {n_drop} of {n_routed} assignments dropped")
+        for i, (x, y) in enumerate(zip(r_card, r_cpu)):
+            check(torch.equal(x.expert_idx.cpu(), y.expert_idx)
+                  and torch.equal(x.keep.cpu(), y.keep),
+                  f"llm {tag} {c.name}: MoE call {i} routes differently on the card (smallest "
+                  f"top-k margin on the CPU {margin:.3e})")
     pre = float((lg_card[0] - lg_cpu[0]).abs().max())
     worst = float((lg_card[1:] - lg_cpu[1:]).abs().max())
     cache_rel = max(float((x[k] - y[k]).abs().max() / y[k].abs().max())
-                    for x, y in zip(c_card, c_cpu) for k in ("k", "v"))
+                    for x, y in zip(c_card, c_cpu) for k in y)
     scale = float(lg_cpu[..., :c.vocab_size].abs().max())
-    print(f"llm (c) {c.name} fp32 at depth {c.n_layers}, full width, card against CPU (one "
-          f"CPU init): batch {b}, prompt {plen}, {steps} teacher-forced decode steps: worst "
-          f"|card - cpu| prefill {pre:.3e} (tol {LLM_PREFILL_ATOL}), decode {worst:.3e} (tol "
-          f"{LLM_DECODE_ATOL}), aligned caches {cache_rel:.3e} of their scale (tol "
-          f"{LLM_CACHE_RTOL}); max |logit| {scale:.4f}; {time.perf_counter() - t0:.3f} s")
-    check(pre <= LLM_PREFILL_ATOL, f"llm (c): prefill logits card vs cpu {pre}")
-    check(worst <= LLM_DECODE_ATOL, f"llm (c): decode logits card vs cpu {worst}")
-    check(cache_rel <= LLM_CACHE_RTOL, f"llm (c): aligned caches card vs cpu {cache_rel}")
+    kinds = "".join(k[0] for k in host.kinds)
+    print(f"llm {tag} {c.name} fp32 at depth {c.n_layers} ({kinds}), full width, card against "
+          f"CPU (one CPU init): batch {b}, prompt {plen}, {steps} teacher-forced decode steps: "
+          f"worst |card - cpu| prefill {pre:.3e} (tol {LLM_PREFILL_ATOL}), decode {worst:.3e} "
+          f"(tol {LLM_DECODE_ATOL}), aligned caches {cache_rel:.3e} of their scale (tol "
+          f"{LLM_CACHE_RTOL}); max |logit| {scale:.4f}{moe}; {time.perf_counter() - t0:.3f} s")
+    check(pre <= LLM_PREFILL_ATOL, f"llm {tag} {c.name}: prefill logits card vs cpu {pre}")
+    check(worst <= LLM_DECODE_ATOL, f"llm {tag} {c.name}: decode logits card vs cpu {worst}")
+    check(cache_rel <= LLM_CACHE_RTOL,
+          f"llm {tag} {c.name}: aligned caches card vs cpu {cache_rel}")
     del host, card
     free()
+
+
+def check_tf32_off():
+    import torch
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 matmuls are on: the fp32 checks would not be fp32")
+
+
+def serve_cli_100m(dev, arch: str) -> str:
+    """`launch.serve llm --preset 100m` in process; its first line."""
+    from repro_torch.launch import serve as serve_cli
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["llm", "--arch", arch, "--preset", "100m", "--device", dev.type])
+    lines = buf.getvalue().splitlines()
+    check(lines and lines[0].startswith("served 8 requests, 128 tokens in "),
+          f"llm {arch} --preset 100m: the CLI printed {lines[:1]}")
+    free()
+    return (f"`python -m repro_torch.launch.serve llm --arch {arch} --preset 100m --device "
+            f"{dev.type}` in process, {time.perf_counter() - t:.3f} s: {lines[0]}")
+
+
+def k1_k2_idle(phase: str) -> dict:
+    from repro_torch.kernels import aig_sim as A
+    from repro_torch.kernels import cim_logic as K
+
+    launched = {**A.LAUNCHES, **K.LAUNCHES}
+    check(not any(launched.values()), f"the {phase} launched a K1/K2 kernel: {launched}")
+    return launched
 
 
 def phase_llm(dev, rng):
@@ -1667,38 +1808,85 @@ def phase_llm(dev, rng):
     in fp32, (c) card against CPU at depth 2, (d) gemma3-27b's ring cache
     at published width, (e) `launch.serve llm --preset 100m` in process.
     The path launches neither K1 nor K2 (their counts stay 0)."""
-    import torch
-    from repro_torch.kernels import aig_sim as A
-    from repro_torch.kernels import cim_logic as K
-    from repro_torch.launch import serve as serve_cli
+    import dataclasses
+
     from repro_torch.launch.train import build_model_config
 
-    check(not torch.backends.cuda.matmul.allow_tf32
-          and torch.get_float32_matmul_precision() == "highest",
-          "TF32 matmuls are on: the fp32 checks would not be fp32")
+    check_tf32_off()
     t_phase = time.time()
     zero_launches()
     cfg = build_model_config(LLM_ARCH, "full")
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size, cfg.padded_vocab)
           == (40, 2304, 36, 5760, 122_753, 122_880), f"{LLM_ARCH}: not the published size")
     llm_serve(dev, cfg)
-    llm_decode_checks(dev, cfg, rng)
-    llm_card_vs_cpu(dev, cfg, rng)
-
-    buf = io.StringIO()
-    t = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        serve_cli.main(["llm", "--preset", "100m", "--device", dev.type])
-    lines = buf.getvalue().splitlines()
-    check(lines and lines[0].startswith("served 8 requests, 128 tokens in "),
-          f"llm (e): the CLI printed {lines[:1]}")
-    print(f"llm (e) `python -m repro_torch.launch.serve llm --preset 100m --device "
-          f"{dev.type}` in process, {time.perf_counter() - t:.3f} s: {lines[0]}")
-    free()
-    launched = {**A.LAUNCHES, **K.LAUNCHES}
-    check(not any(launched.values()), f"the LM path launched a K1/K2 kernel: {launched}")
+    gemma = dataclasses.replace(build_model_config("gemma3-27b", "full"), n_layers=6)
+    decode_checks(dev, [("(b)", cfg, 2, 128, 32), ("(d)", gemma, 1, 1088, 64)], rng)
+    card_vs_cpu(dev, dataclasses.replace(cfg, n_layers=2), rng, "(c)", 2, 64, 16)
+    print(f"llm (e) {serve_cli_100m(dev, LLM_ARCH)}")
+    launched = k1_k2_idle("LM path")
     wall = time.time() - t_phase
     print(f"llm phase: wall {wall:.3f} s; K1/K2 launches {json.dumps(launched)}")
+    return wall
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: LM serving for the MoE and recurrent families on the card
+# ---------------------------------------------------------------------------
+
+#: (a)'s archs, served at published size with phase 10's mix, and the
+#: (n_layers, d_model, vocab_size) each config must have
+LLM11_ARCHS = {
+    "deepseek-moe-16b": (28, 2048, 102_400),
+    "recurrentgemma-9b": (38, 4096, 256_000),
+    "mamba2-780m": (48, 1536, 50_280),
+}
+#: (d): every new arch through the CLI; moonshot-v1-16b-a3b (57 GB in bf16)
+#: is served on the card at this preset only
+LLM11_CLI_ARCHS = (*LLM11_ARCHS, "moonshot-v1-16b-a3b")
+
+
+def phase_llm11(dev, rng):
+    """The MoE and recurrent families on the card: (a) deepseek-moe-16b,
+    recurrentgemma-9b and mamba2-780m served at published size in bf16;
+    (b) fp32 decode against the forward (mamba2 at published size,
+    recurrentgemma at published width over one pattern period with its
+    ring rotated, deepseek at depth 3 with a dropless capacity factor);
+    (c) card against CPU at full width and depth 2-3, the MoE at its
+    published capacity factor with drops; (d) `launch.serve llm --preset
+    100m` for the four new archs.  Neither K1 nor K2 is launched."""
+    import dataclasses
+
+    from repro_torch.launch.train import build_model_config
+
+    check_tf32_off()
+    t_phase = time.time()
+    zero_launches()
+    cfgs = {}
+    for arch, size in LLM11_ARCHS.items():
+        cfgs[arch] = cfg = build_model_config(arch, "full")
+        check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == size,
+              f"{arch}: not the published size")
+        llm_serve(dev, cfg)
+    ds, rg, mb = (cfgs[a] for a in LLM11_ARCHS)
+    decode_checks(dev, [
+        ("(b)", mb, 2, 128, 64),
+        # prompt 2,112 > window 2,048: the ring is rotated by 64
+        ("(b)", dataclasses.replace(rg, n_layers=3), 1, 2112, 32),
+        # dense layer 0 and two scanned MoE layers; capacity n_experts / top_k drops nothing
+        ("(b)", dataclasses.replace(ds, n_layers=3, capacity_factor=ds.n_experts / ds.top_k),
+         2, 128, 32),
+    ], rng)
+    # 4 x 64 tokens at capacity factor 1.25: capacity 30 against a mean load of 24
+    card_vs_cpu(dev, dataclasses.replace(ds, n_layers=2), rng, "(c)", 4, 64, 16)
+    card_vs_cpu(dev, dataclasses.replace(mb, n_layers=2), rng, "(c)", 2, 64, 16)
+    card_vs_cpu(dev, dataclasses.replace(rg, n_layers=3), rng, "(c)", 2, 64, 16)
+    for arch in LLM11_CLI_ARCHS:
+        note = (" (held on the CPU at smoke size and on the card at this preset only: 57 GB "
+                "in bf16 at published size)" if arch not in LLM11_ARCHS else "")
+        print(f"llm (d) {serve_cli_100m(dev, arch)}{note}")
+    launched = k1_k2_idle("MoE/recurrent LM path")
+    wall = time.time() - t_phase
+    print(f"llm11 phase: wall {wall:.3f} s; K1/K2 launches {json.dumps(launched)}")
     return wall
 
 
@@ -1750,7 +1938,7 @@ def main() -> int:
     suite, cha, res, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
     mc, fused = phase_sweep(dev, suite, cha)
     times.update(phase_k2(dev, netlists, vectors))
-    # Phases 5-10 run after the kernel line's launch counts were taken
+    # Phases 5-11 run after the kernel line's launch counts were taken
     # (``launches`` is phase 2's); each phase sets the counts to 0 first.
     served = {n: suite[n] for n in SERVICE_CIRCUITS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1763,9 +1951,11 @@ def main() -> int:
         overhead_s = time.time() - t
     system_s = phase_system(dev, rng)
     llm_s = phase_llm(dev, rng)
-    print(f"phases 5-10 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
+    llm11_s = phase_llm11(dev, rng)
+    print(f"phases 5-11 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
           f"CLI {cli_s:.3f} s, chaos {chaos_s:.3f} s, journal overhead {overhead_s:.3f} s, "
-          f"system {system_s:.3f} s, LM serving {llm_s:.3f} s")
+          f"system {system_s:.3f} s, LM serving {llm_s:.3f} s, MoE/recurrent LM serving "
+          f"{llm11_s:.3f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

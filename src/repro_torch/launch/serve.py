@@ -7,8 +7,9 @@ Two subcommands share this entry point, both on ``--device`` (default
     (also the default when no subcommand is given, as in the reference);
   * ``explore`` -- the rCiM exploration service.
 
-``llm`` builds the model from random weights (seed 0), casts them to
-bf16, and serves ``--requests`` random prompts.  ``explore`` spins up `serve.explore_service.ExplorationService` (a warm
+``llm`` builds the model from random weights (seed 0) in bf16 (the
+recurrent blocks' fp32 leaves stay fp32, `models.model.FP32_PARAMS`)
+and serves ``--requests`` random prompts.  ``explore`` spins up `serve.explore_service.ExplorationService` (a warm
 persistent query engine on ``--device``, default ``cuda``), streams
 design queries at it, and prints per-request winners and service-time
 percentiles.
@@ -17,6 +18,8 @@ Examples::
 
     python -m repro_torch.launch.serve llm --preset 100m
     python -m repro_torch.launch.serve llm --device cpu --preset smoke
+    python -m repro_torch.launch.serve llm --arch deepseek-moe-16b --preset full
+    python -m repro_torch.launch.serve llm --device cpu --arch mamba2-780m
     python -m repro_torch.launch.serve explore --scale tiny --requests 16
     python -m repro_torch.launch.serve explore --circuits adder,max \\
         --max-memory-kb 96 --max-latency-ns 400 --sweep mc --variants 8
@@ -42,9 +45,9 @@ def _main_llm(args: argparse.Namespace) -> None:
 
     dev = resolve_device(args.device)
     cfg = build_model_config(args.arch, args.preset)
-    model = Model(cfg, ParallelConfig(), q_chunk=64, kv_chunk=64, device=dev)
+    model = Model(cfg, ParallelConfig(), q_chunk=64, kv_chunk=64, device=dev,
+                  param_dtype=torch.bfloat16)
     model.init(torch.Generator(device=dev).manual_seed(0))
-    model.to(torch.bfloat16)
 
     engine = ServeEngine(model, batch=args.batch,
                          max_seq=args.prompt_len + args.max_new,
@@ -151,7 +154,8 @@ def main(argv: "list[str] | None" = None) -> None:
 
     llm = sub.add_parser("llm", help="batched LLM generation engine")
     llm.add_argument("--arch", default="minicpm-2b")
-    llm.add_argument("--preset", choices=["smoke", "100m"], default="smoke")
+    llm.add_argument("--preset", choices=["smoke", "100m", "full"], default="smoke",
+                     help="smoke (CPU size), 100m, or full (the published config)")
     llm.add_argument("--batch", type=int, default=4)
     llm.add_argument("--prompt-len", type=int, default=32)
     llm.add_argument("--max-new", type=int, default=16)

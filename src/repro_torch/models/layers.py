@@ -1,10 +1,11 @@
-"""Transformer building blocks of the port (PyTorch), dense half.
+"""Transformer building blocks of the port (PyTorch).
 
-Mirrors the reference's ``models/layers.py`` function by function for the
-block kinds ``attn`` and ``local``: param specs, norms, rope, chunked
-online-softmax attention (train / prefill) and single-token decode
-attention against a KV cache, the gated MLP, and the (padded-vocab)
-embedding.  MoE and cross-attention wait for their slices.
+Mirrors the reference's ``models/layers.py`` function by function: param
+specs, norms, rope, chunked online-softmax attention (train / prefill)
+and single-token decode attention against a KV cache, the gated MLP, the
+fine-grained MoE FFN (shared + routed top-k experts, sort-based dispatch
+into a capacity buffer), and the (padded-vocab) embedding.
+Cross-attention waits for its slice.
 
 Parameters are held by `ParamTree` modules whose leaves are addressed
 like the reference's param dicts (``p["wq"]``, ``"bq" in p``), so the
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Mapping
+from typing import Callable, Mapping, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,11 +37,11 @@ NEG = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """A leaf's shape and init.  The dense specs use only the reference's
+    """A leaf's shape and init.  The ported specs use only the reference's
     default scale (1.0); its logical (sharding) axes are not kept."""
 
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | zeros
+    init: str = "normal"  # normal | zeros | ones
 
     def std(self) -> float:
         """The reference's rule: ``fan_in = shape[0]`` for a matrix, so for
@@ -53,6 +54,8 @@ class ParamSpec:
         dev = generator.device
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=torch.float32, device=dev)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=torch.float32, device=dev)
         t = torch.randn(self.shape, generator=generator, dtype=torch.float32, device=dev)
         return t.mul_(self.std())
 
@@ -80,20 +83,26 @@ def tree_leaves(tree, prefix: str = ""):
 class ParamTree(nn.Module):
     """A nested dict of parameters as a module: leaves are `nn.Parameter`
     (no grad; serving), sub-dicts are child `ParamTree` modules, and
-    ``p[name]`` addresses both."""
+    ``p[name]`` / ``name in p`` address both.  Leaves are allocated (as
+    zeros) in ``dtype``, except those whose dotted path from the root is in
+    ``fp32``, which stay fp32."""
 
-    def __init__(self, specs: Mapping, device: torch.device):
+    def __init__(self, specs: Mapping, device: torch.device,
+                 dtype: torch.dtype = torch.float32, fp32=frozenset(), prefix: str = ""):
         super().__init__()
         for k, s in specs.items():
             if is_spec(s):
+                dt = torch.float32 if prefix + k in fp32 else dtype
                 self.register_parameter(k, nn.Parameter(
-                    torch.zeros(s.shape, dtype=torch.float32, device=device),
-                    requires_grad=False))
+                    torch.zeros(s.shape, dtype=dt, device=device), requires_grad=False))
             else:
-                self.add_module(k, ParamTree(s, device))
+                self.add_module(k, ParamTree(s, device, dtype, fp32, f"{prefix}{k}."))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +354,134 @@ def mlp(p, x, cfg):
     a = act_fn(cfg.act)
     h = a(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE (fine-grained: shared + routed top-k, sort-based dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg) -> dict:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    s = dict(
+        router=ParamSpec((d, e)),
+        we_gate=ParamSpec((e, d, f)),
+        we_up=ParamSpec((e, d, f)),
+        we_down=ParamSpec((e, f, d)),
+    )
+    if cfg.n_shared_experts:
+        fs = cfg.moe_d_ff * cfg.n_shared_experts
+        s.update(
+            ws_gate=ParamSpec((d, fs)),
+            ws_up=ParamSpec((d, fs)),
+            ws_down=ParamSpec((fs, d)),
+        )
+    return s
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing of ``G`` groups of ``Ng`` tokens.  The flat
+    assignments (``Ng * k`` per group) are sorted expert-major, stably, so
+    within an expert earlier tokens come first."""
+
+    probs: torch.Tensor  # (G, Ng, E) fp32 router probabilities
+    expert_idx: torch.Tensor  # (G, Ng, k) top-k experts, the lower index first on ties
+    gate_vals: torch.Tensor  # (G, Ng, k) top-k probabilities renormalized to sum 1
+    aux_loss: torch.Tensor  # () Switch-style load-balancing loss
+    cap: int  # slots per expert and group
+    order: torch.Tensor  # (G, Ng*k) sorted position -> flat (token-major) index
+    keep: torch.Tensor  # (G, Ng*k) the sorted assignment fits its expert's capacity
+    dst: torch.Tensor  # (G, Ng*k) its slot in the (E * cap) buffer (0 of its expert if dropped)
+
+
+def moe_route(p, xt: torch.Tensor, cfg) -> Routing:
+    """Top-k routing, the aux loss, and each assignment's capacity slot.
+
+    xt: (G, Ng, D).  The capacity is ``min(max(ceil(Ng*k/E * cf), 8),
+    Ng*k)``; an expert's assignments beyond it are dropped, earliest
+    tokens kept (the reference's stable sort)."""
+    g, ng, _ = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = (xt @ p["router"].to(xt.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)  # (G, Ng, E)
+    # jax.lax.top_k's order: descending, the lower index first on ties
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = gate_vals[..., :k], expert_idx[..., :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # aux load-balancing loss (Switch-style), group-averaged
+    me = probs.mean((0, 1))
+    # counts as float adds of 1.0: exact in any order, and no host sync
+    # (bincount sizes its output from the data's max on the card)
+    flat_idx = expert_idx.reshape(-1)
+    ce = torch.zeros(e, dtype=torch.float32, device=xt.device).index_add_(
+        0, flat_idx, torch.ones(flat_idx.shape, dtype=torch.float32, device=xt.device))
+    ce = ce / (g * ng * k)
+    aux_loss = e * torch.sum(me * ce)
+
+    cap = int(math.ceil(ng * k / e * cfg.capacity_factor))
+    cap = min(max(cap, 8), ng * k)
+
+    flat_expert = expert_idx.reshape(g, ng * k)
+    order = torch.argsort(flat_expert, dim=-1, stable=True)
+    se = flat_expert.gather(1, order)
+    run_start = torch.searchsorted(
+        se, torch.arange(e, device=xt.device).expand(g, e).contiguous(), side="left")
+    pos_in_e = torch.arange(ng * k, device=xt.device) - run_start.gather(1, se)
+    keep = pos_in_e < cap
+    dst = se * cap + torch.where(keep, pos_in_e, 0)
+    return Routing(probs, expert_idx, gate_vals, aux_loss, cap, order, keep, dst)
+
+
+def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1):
+    """Fine-grained MoE with grouped sort-based dispatch (GShard groups).
+
+    Tokens are split into ``n_groups`` groups (the reference's data
+    shards; one card serves one group) and all routing bookkeeping is
+    group-local.  Every expert runs over its whole ``(G, cap, D)`` slice of
+    the dispatch buffer, as in the reference.  Overflow beyond capacity is
+    dropped.  The combine sums each token's kept contributions in
+    ascending expert order, the order of the reference's sorted
+    scatter-add, with plain adds (no atomics), so it is deterministic on
+    the card.  Returns ``(out, aux_loss)``.
+    """
+    b, s, d = x.shape
+    n = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    g = math.gcd(n_groups, n) if n_groups > 1 else 1
+    ng = n // g
+    xt = x.reshape(g, ng, d)
+    a = act_fn(cfg.act)
+    r = moe_route(p, xt, cfg)
+    cap = r.cap
+
+    st = r.order // k  # token of each sorted assignment
+    sg = r.gate_vals.reshape(g, ng * k).gather(1, r.order)
+    keep = r.keep[..., None]
+    gathered = torch.where(keep, xt.gather(1, st[..., None].expand(-1, -1, d)), 0)
+    # kept slots are unique; a dropped assignment adds exact zeros
+    buf = torch.zeros((g, e * cap, d), dtype=xt.dtype, device=xt.device).scatter_add_(
+        1, r.dst[..., None].expand(-1, -1, d), gathered).reshape(g, e, cap, d)
+
+    h = a(torch.einsum("gecd,edf->gecf", buf, p["we_gate"].to(buf.dtype))) * torch.einsum(
+        "gecd,edf->gecf", buf, p["we_up"].to(buf.dtype))
+    y = torch.einsum("gecf,efd->gecd", h, p["we_down"].to(buf.dtype)).reshape(g, e * cap, d)
+
+    yd = y.gather(1, r.dst[..., None].expand(-1, -1, d))  # (G, Ng*k, D)
+    contrib = torch.where(keep, yd * sg[..., None].to(y.dtype), 0)
+    # each token's k sorted positions, in ascending expert order
+    inv = torch.empty_like(r.order).scatter_(
+        1, r.order, torch.arange(ng * k, device=x.device).expand(g, -1).contiguous())
+    pos = inv.reshape(g, ng, k).gather(2, torch.argsort(r.expert_idx, dim=-1))
+    per_tok = contrib.gather(1, pos.reshape(g, ng * k, 1).expand(-1, -1, d)).reshape(g, ng, k, d)
+    out = torch.zeros((g, ng, d), dtype=xt.dtype, device=x.device)
+    for j in range(k):
+        out = out + per_tok[:, :, j]
+
+    if cfg.n_shared_experts:
+        hs = a(xt @ p["ws_gate"].to(xt.dtype)) * (xt @ p["ws_up"].to(xt.dtype))
+        out = out + hs @ p["ws_down"].to(xt.dtype)
+    return out.reshape(b, s, d), r.aux_loss
 
 
 # ---------------------------------------------------------------------------

@@ -4,17 +4,19 @@ Handles the cache-layout plumbing between the two phases:
   * global-attention caches are padded from prompt length to max_seq,
   * local-attention ring caches are rotated so entry i holds absolute
     position p with p === i (mod window) -- the invariant decode_step's
-    ring addressing relies on.
+    ring addressing relies on,
+  * recurrent states (SSD / RG-LRU) pass through unchanged.
 
-The caches are one ``{k, v}`` dict per layer, and `align_prefill_caches`
-picks pad-or-rotate from each layer's kind, never from shapes: a
-window-full ring cache has the SAME shape as its allocation but still
-needs rotation whenever prompt_len % window != 0.
+The caches are one dict per layer (``{k, v}`` or ``{conv, state}``), and
+`align_prefill_caches` picks the action from each layer's kind, never
+from shapes: a window-full ring cache has the SAME shape as its
+allocation but still needs rotation whenever prompt_len % window != 0.
 
 A lightweight slot-based batcher (continuous-batching lite) serves
 variable-length requests on a fixed batch of decode slots.  Prompts are
 left-padded with token 0 and the pads are attended (they hold positions
-0..pad-1), as in the reference.
+0..pad-1), as in the reference; in a recurrent layer they pass through
+the conv and enter the state.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..models.model import Model
+from ..models.model import RECURRENT_KINDS, Model
 
 
 def align_prefill_caches(model: Model, caches: list[dict], prompt_len: int,
@@ -35,12 +37,16 @@ def align_prefill_caches(model: Model, caches: list[dict], prompt_len: int,
     window = model.cfg.window
     out = []
     for kind, cache in zip(model.kinds, caches):
+        for name, pre in cache.items():
+            if pre.shape[0] != batch:
+                raise ValueError(f"cache {name}: batch {pre.shape[0]} != {batch}")
+        if kind in RECURRENT_KINDS:
+            out.append(cache)
+            continue
         tgt_len = model.cache_len(kind, max_seq)
         ring = kind == "local" and window and tgt_len == window and prompt_len >= window
         fixed = {}
         for name, pre in cache.items():
-            if pre.shape[0] != batch:
-                raise ValueError(f"cache {name}: batch {pre.shape[0]} != {batch}")
             cur = pre.shape[1]
             t = pre if cur == tgt_len else F.pad(pre, (0, 0, 0, 0, 0, tgt_len - cur))
             if ring and prompt_len % window:

@@ -356,27 +356,23 @@ def test_evaluate_lowered_and_compare_system_on_card_equal_cpu(cuda_device):
                                cpu["energy_ratio_rcim_over_accel"], rtol=1e-12)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-27b"])
-def test_dense_lm_on_card_equals_cpu(cuda_device, arch):
-    """A dense smoke config in fp32 from one CPU init: the card's prefill
-    logits, aligned caches and 8 teacher-forced decode steps equal the
-    CPU's within 1e-4 (the logits' scale is about 1-2), and greedy
-    `ServeEngine.generate` gives the CPU's tokens (prompt 20 > gemma3's
-    smoke window 16: the ring caches are cut and rotated)."""
-    from repro_torch.configs import smoke_config
+def lm_card_against_cpu(cuda_device, cfg, S, P):
+    """fp32 from one CPU init: the card's prefill logits, aligned caches
+    (KV, conv and recurrent states) and the teacher-forced decode steps
+    equal the CPU's within 1e-4 (the logits' scale is about 1-2), and
+    greedy `ServeEngine.generate` gives the CPU's tokens."""
     from repro_torch.models.config import ParallelConfig
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine, align_prefill_caches
 
     def build(dev):
-        return Model(smoke_config(arch), ParallelConfig(), compute_dtype=torch.float32,
+        return Model(cfg, ParallelConfig(), compute_dtype=torch.float32,
                      q_chunk=8, kv_chunk=8, device=dev)
 
     cpu = build("cpu").init(torch.Generator().manual_seed(0))
     gpu = build(cuda_device)
     gpu.load_state_dict(cpu.state_dict())
-    B, S, P = 2, 28, 20
+    B = 2
     toks = np.random.default_rng(0).integers(0, cpu.cfg.vocab_size, (B, S)).astype(np.int32)
     got = {}
     for name, m in (("cpu", cpu), ("gpu", gpu)):
@@ -395,7 +391,32 @@ def test_dense_lm_on_card_equals_cpu(cuda_device, arch):
         got[name] = (torch.stack(steps), aligned, out)
     torch.testing.assert_close(got["gpu"][0], got["cpu"][0], rtol=0, atol=1e-4)
     for c_gpu, c_cpu in zip(got["gpu"][1], got["cpu"][1]):
-        for k in ("k", "v"):
+        assert c_gpu.keys() == c_cpu.keys()
+        for k in c_cpu:
             torch.testing.assert_close(c_gpu[k], c_cpu[k], rtol=1e-4,
                                        atol=1e-4 * float(c_cpu[k].abs().max()))
     np.testing.assert_array_equal(got["gpu"][2], got["cpu"][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-27b"])
+def test_dense_lm_on_card_equals_cpu(cuda_device, arch):
+    """A dense smoke config, 8 decode steps (prompt 20 > gemma3's smoke
+    window 16: the ring caches are cut and rotated)."""
+    from repro_torch.configs import smoke_config
+
+    lm_card_against_cpu(cuda_device, smoke_config(arch), 28, 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-780m", "recurrentgemma-9b"])
+def test_moe_and_recurrent_lm_on_card_equals_cpu(cuda_device, arch):
+    """A smoke config at depth 2 (deepseek: its dense layer 0 and one MoE
+    layer; mamba2: two SSD blocks; recurrentgemma: two RG-LRU blocks),
+    prompt 24 (three of mamba2's smoke SSD chunks), 8 decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    cfg = dataclasses.replace(smoke_config(arch), n_layers=2)
+    lm_card_against_cpu(cuda_device, cfg, 32, 24)

@@ -1,11 +1,15 @@
-"""The port's dense LM (``repro_torch.models``) against the reference's.
+"""The port's LM (``repro_torch.models``) against the reference's: the
+dense family, the MoE family and the recurrent families (Mamba-2 and
+RG-LRU blocks).
 
 Params come from the reference's ``Model.init`` and cross over as numpy
 through ``params_from_reference``; token inputs are made from a seed with
 numpy.  Compute is fp32 in both packages.  Parity tolerances: logits
-within ``atol=2e-4`` (their scale is 1-5 here; the measured gap is
-1e-6-3e-5, summation order), caches within ``rtol=1e-4`` of their own
-scale.  The port-alone checks keep the reference's own tolerances
+within ``atol=2e-4`` for the dense family (their scale is 1-5 here; the
+measured gap is 1e-6-3e-5, summation order) and ``1e-4`` for the new
+kinds, caches and recurrent states within ``rtol=1e-4`` (dense) and
+``1e-5`` (new kinds) of their own scale, the MoE aux loss within 1e-6
+relative.  The port-alone checks keep the reference's own tolerances
 (2e-3 prefill, 5e-3 decode; ``tests/test_models.py``).
 """
 
@@ -21,13 +25,26 @@ from repro.models.config import ParallelConfig as RParallelConfig
 from repro.models.model import Model as RModel
 from repro.serve.engine import align_prefill_caches as r_align
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.models import layers as L
 from repro_torch.models.config import ParallelConfig
-from repro_torch.models.interop import caches_from_reference, params_from_reference
-from repro_torch.models.model import Model, build_segments, model_specs
+from repro_torch.models.interop import (caches_from_reference, caches_to_reference,
+                                        params_from_reference)
+from repro_torch.models.model import FP32_PARAMS, Model, build_segments, keeps_fp32, model_specs
 from repro_torch.serve.engine import align_prefill_caches
 
 DENSE = ("minicpm-2b", "qwen1.5-4b", "gemma3-27b", "deepseek-coder-33b")
+MOE = ("deepseek-moe-16b", "moonshot-v1-16b-a3b")
+RECURRENT = ("mamba2-780m", "recurrentgemma-9b")
+ARCHS = DENSE + MOE + RECURRENT
 LOGIT_ATOL = 2e-4
+#: the new kinds' tolerances: logits (absolute), caches (share of their scale)
+NEW_LOGIT_ATOL, NEW_CACHE_RTOL = 1e-4, 1e-5
+
+
+def lengths(arch):
+    """(S, P): mamba2's smoke SSD chunk is 8, which must divide a length
+    above it; prompt 20 > the smoke window 16 elsewhere."""
+    return (32, 24) if arch == "mamba2-780m" else (28, 20)
 
 
 def tokens(cfg, b, s, seed=0):
@@ -50,25 +67,29 @@ def port_model(cfg, params=None, q_chunk=8, seed=0):
     return params_from_reference(m, jax.tree.map(np.asarray, params))
 
 
-def same_caches(got, want):
+def same_caches(got, want, rel=1e-4):
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        for name in ("k", "v"):
+        assert g.keys() == w.keys()
+        for name in w:
+            assert g[name].dtype == w[name].dtype, name
             scale = float(w[name].abs().max())
-            torch.testing.assert_close(g[name], w[name], rtol=1e-4, atol=1e-4 * scale)
+            torch.testing.assert_close(g[name], w[name], rtol=rel, atol=rel * scale)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_caches_and_decode_equal_the_reference(arch):
-    """Teacher-forced logits, prefill logits and caches, the aligned caches
-    and 8 decode steps.  Prompt 20 > gemma3's smoke window 16, so its ring
-    caches are cut to the window and rotated by 4."""
+    """Teacher-forced logits and aux loss, prefill logits and caches, the
+    aligned caches and 8 decode steps.  Prompt 20 > the smoke window 16,
+    so gemma3's and recurrentgemma's ring caches are cut to the window
+    and rotated by 4; recurrent states pass alignment unchanged."""
     rm, params = ref_model(arch)
     pm = port_model(smoke_config(arch), params)
-    B, S, P = 2, 28, 20
+    B, (S, P) = 2, lengths(arch)
+    atol, rel = (LOGIT_ATOL, 1e-4) if arch in DENSE else (NEW_LOGIT_ATOL, NEW_CACHE_RTOL)
     toks = tokens(pm.cfg, B, S)
 
-    r_full, _ = jax.jit(rm.forward)(params, dict(tokens=jnp.asarray(toks)))
+    r_full, r_aux = jax.jit(rm.forward)(params, dict(tokens=jnp.asarray(toks)))
     r_last, r_caches = jax.jit(rm.prefill)(params, dict(tokens=jnp.asarray(toks[:, :P])))
     r_aligned = r_align(rm, r_caches, P, S, batch=B)
     decode = jax.jit(rm.decode_step)
@@ -80,16 +101,21 @@ def test_forward_prefill_caches_and_decode_equal_the_reference(arch):
     tt = torch.as_tensor(toks, dtype=torch.int64)
     with torch.no_grad():
         full, aux = pm.forward(dict(tokens=tt))
-        np.testing.assert_allclose(full.numpy(), np.asarray(r_full), atol=LOGIT_ATOL, rtol=0)
-        assert float(aux) == 0.0
+        np.testing.assert_allclose(full.numpy(), np.asarray(r_full), atol=atol, rtol=0)
+        if arch in MOE:
+            assert float(aux) > 0
+            np.testing.assert_allclose(float(aux), float(r_aux), rtol=1e-6)
+        else:
+            assert float(aux) == 0.0 == float(r_aux)
         last, caches = pm.prefill(dict(tokens=tt[:, :P]))
-        np.testing.assert_allclose(last.numpy(), np.asarray(r_last), atol=LOGIT_ATOL, rtol=0)
-        same_caches(caches, caches_from_reference(pm, jax.tree.map(np.asarray, r_caches)))
+        np.testing.assert_allclose(last.numpy(), np.asarray(r_last), atol=atol, rtol=0)
+        same_caches(caches, caches_from_reference(pm, jax.tree.map(np.asarray, r_caches)), rel)
         caches = align_prefill_caches(pm, caches, P, S, batch=B)
-        same_caches(caches, caches_from_reference(pm, jax.tree.map(np.asarray, r_aligned)))
+        same_caches(caches, caches_from_reference(pm, jax.tree.map(np.asarray, r_aligned)), rel)
+        assert all(c["state"].dtype == torch.float32 for c in caches if "state" in c)
         for i, t in enumerate(range(P, S)):
             lg, caches = pm.decode_step(caches, tt[:, t], t)
-            np.testing.assert_allclose(lg.numpy(), r_steps[i], atol=LOGIT_ATOL, rtol=0)
+            np.testing.assert_allclose(lg.numpy(), r_steps[i], atol=atol, rtol=0)
 
 
 def decode_against_forward(m, B, S, P):
@@ -106,10 +132,11 @@ def decode_against_forward(m, B, S, P):
     return prefill_err, worst
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """Serving correctness in the port alone (``tests/test_models.py:53``):
-    prefill + decode logits == the teacher-forced forward."""
+    prefill + decode logits == the teacher-forced forward (the MoE smoke
+    configs are dropless, capacity factor 8)."""
     prefill_err, worst = decode_against_forward(port_model(smoke_config(arch)), 2, 24, 16)
     assert prefill_err < 2e-3, (arch, prefill_err)
     assert worst < 5e-3, (arch, worst)
@@ -200,12 +227,103 @@ def test_params_from_reference_rejects_a_bad_tree(fault):
 
 
 @pytest.mark.parametrize("arch,feature", [
-    ("mamba2-780m", "ssm"),
-    ("recurrentgemma-9b", "rglru"),
     ("whisper-tiny", "xattn"),
-    ("deepseek-moe-16b", "MoE"),
     ("internvl2-2b", "n_patches"),
 ])
 def test_out_of_slice_configs_raise(arch, feature):
     with pytest.raises(NotImplementedError, match=feature):
         Model(smoke_config(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", RECURRENT + MOE[:1])
+def test_port_caches_continue_the_reference_decode(arch):
+    """The port's aligned prefill caches, carried back by
+    ``caches_to_reference``, let the reference's ``decode_step`` go on
+    where the port's would: the same logits for 4 steps."""
+    rm, params = ref_model(arch)
+    pm = port_model(smoke_config(arch), params)
+    B, (S, P) = 2, lengths(arch)
+    toks = tokens(pm.cfg, B, S)
+    tt = torch.as_tensor(toks, dtype=torch.int64)
+    with torch.no_grad():
+        _, caches = pm.prefill(dict(tokens=tt[:, :P]))
+        caches = align_prefill_caches(pm, caches, P, S, batch=B)
+        r_cur = jax.tree.map(jnp.asarray, caches_to_reference(pm, caches))
+        decode = jax.jit(rm.decode_step)
+        for t in range(P, P + 4):
+            lg, caches = pm.decode_step(caches, tt[:, t], t)
+            r_lg, r_cur = decode(params, r_cur, jnp.asarray(toks[:, t]), jnp.int32(t))
+            np.testing.assert_allclose(lg.numpy(), np.asarray(r_lg), atol=NEW_LOGIT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_init_shapes_and_per_leaf_std_follow_the_reference(arch):
+    """13 layers: the reference's tree and shapes; every drawn leaf of a
+    scanned segment has std 1/sqrt(n_groups), an unscanned one
+    1/sqrt(shape[0]); the ``ones`` leaves are ones."""
+    from repro.configs import smoke_config as r_smoke
+
+    cfg = dataclasses.replace(smoke_config(arch), n_layers=13)
+    r_shapes = RModel(dataclasses.replace(r_smoke(arch), n_layers=13),
+                      RParallelConfig()).param_shapes()
+    r_flat = {".".join(str(k.key) for k in path): shp
+              for path, shp in jax.tree_util.tree_flatten_with_path(
+                  r_shapes, is_leaf=lambda t: isinstance(t, tuple))[0]}
+    m = Model(cfg, ParallelConfig(), device="cpu")
+    assert m.param_shapes() == r_flat
+    m.init(torch.Generator().manual_seed(0))
+    n_checked = 0
+    for path, spec in L.tree_leaves(m.specs()):
+        head, _, rest = path.partition(".")
+        if not head.startswith("seg"):
+            continue
+        seg = m.segments[int(head[3:])]
+        block, _, leaf = rest.partition(".")
+        i = int(block[1:])
+        vals = []
+        for g in range(seg.n_groups):
+            p = m.layers[seg.first_layer + g * len(seg.kinds) + i]
+            for name in leaf.split("."):
+                p = p[name]
+            vals.append(p)
+        vals = torch.stack(vals)
+        if spec.init == "ones":
+            assert bool((vals == 1).all()), path
+        elif spec.init == "normal" and vals.numel() >= 1000:
+            assert abs(float(vals.std()) / spec.std() - 1) < 0.05, path
+            n_checked += 1
+    assert n_checked >= 3
+
+
+@pytest.mark.parametrize("arch", RECURRENT + MOE[:1])
+def test_bf16_model_keeps_the_fp32_params(arch):
+    """``param_dtype=bfloat16`` draws each leaf in fp32 and casts it on the
+    way in: bit-equal to an fp32 ``init`` followed by ``cast``.  The named
+    fp32 leaves stay fp32, every other param is bf16, and the bf16 model
+    serves (prefill + decode) with finite logits and fp32 states."""
+    cfg = smoke_config(arch)
+    a = Model(cfg, ParallelConfig(), device="cpu", param_dtype=torch.bfloat16)
+    a.init(torch.Generator().manual_seed(0))
+    b = Model(cfg, ParallelConfig(), device="cpu").init(torch.Generator().manual_seed(0))
+    b.cast(torch.bfloat16)
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    assert pa.keys() == pb.keys()
+    n_fp32 = 0
+    for name, t in pa.items():
+        want = torch.float32 if keeps_fp32(name) else torch.bfloat16
+        assert t.dtype == pb[name].dtype == want, name
+        assert torch.equal(t, pb[name]), name
+        n_fp32 += want == torch.float32
+    assert n_fp32 == sum(n.startswith(kind + ".") for kind in cfg.layer_kinds
+                         for n in FP32_PARAMS)
+    B, (S, P) = 2, lengths(arch)
+    tt = torch.as_tensor(tokens(cfg, B, S), dtype=torch.int64)
+    with torch.no_grad():
+        last, caches = a.prefill(dict(tokens=tt[:, :P]))
+        caches = align_prefill_caches(a, caches, P, S, batch=B)
+        lg, caches = a.decode_step(caches, tt[:, P], P)
+    assert last.dtype == lg.dtype == torch.bfloat16
+    assert bool(torch.isfinite(lg[:, :cfg.vocab_size]).all())
+    for c in caches:
+        if "state" in c:
+            assert c["state"].dtype == torch.float32 and c["conv"].dtype == torch.bfloat16

@@ -33,10 +33,13 @@ def small_model(arch="minicpm-2b", dtype=torch.float32, q_chunk=16):
     return m.init(torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", ["gemma3-27b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ["gemma3-27b", "minicpm-2b", "deepseek-moe-16b",
+                                  "recurrentgemma-9b", "mamba2-780m"])
 def test_greedy_generate_equals_the_reference_and_is_deterministic(arch):
     """``tests/test_system.py:99``'s setup (batch 2, max_seq 64, prompt 24,
-    6 new tokens; gemma3's smoke window 16 exercises the ring cache)."""
+    6 new tokens; the smoke window 16 exercises gemma3's and
+    recurrentgemma's ring caches, the recurrent states pass alignment
+    unchanged)."""
     from repro.configs import smoke_config as r_smoke
 
     rm = RModel(r_smoke(arch), RParallelConfig(), compute_dtype=jnp.float32,
@@ -151,3 +154,19 @@ def test_llm_cli_runs_on_the_cpu(argv):
     n_req, n_new = (8, 16) if argv[0] == "llm" else (2, 3)
     assert first.startswith(f"served {n_req} requests, {n_req * n_new} tokens in ")
     assert first.endswith("tok/s on CPU)")
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen1.5-4b", "gemma3-27b",
+                                  "deepseek-coder-33b", "deepseek-moe-16b",
+                                  "moonshot-v1-16b-a3b", "mamba2-780m", "recurrentgemma-9b"])
+def test_llm_cli_serves_every_ported_arch(arch):
+    """``llm --device cpu --preset smoke --arch <arch>`` for each of the
+    eight decoder-only archs; every token in the vocab."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_cli.main(["llm", "--device", "cpu", "--preset", "smoke", "--arch", arch,
+                        "--requests", "2", "--max-new", "3"])
+    lines = out.getvalue().splitlines()
+    assert lines[0].startswith("served 2 requests, 6 tokens in ")
+    toks = [int(t) for line in lines[1:] for t in line.split("[")[1].split("]")[0].split(",")]
+    assert len(toks) == 6 and all(0 <= t < smoke_config(arch).vocab_size for t in toks)
