@@ -112,12 +112,36 @@ and then runs these phases, failing (non-zero exit) on any error:
    llm --preset 100m`` for the four new archs (moonshot-v1-16b-a3b runs
    on the card at this preset only).  Phase 10's tolerances; neither K1
    nor K2 is launched.
+12. whisper-tiny's encoder-decoder and internvl2-2b's patch prefix, and
+   the training path, random weights from seed 0, TF32 off: (a) both at
+   published size in bf16, served as in phase 10 (a) but wave by wave
+   through ``ServeEngine.generate(..., extra_batch=)`` (``serve`` refuses
+   them, as the reference's fails on them), encoder frames (4, 1500, 384)
+   or image patches (4, 256, 2048) drawn from seed 0, with the decode
+   step's bytes bound counting the whole cross KV; (b) fp32 decode
+   against the teacher-forced forward at published size (batch 2,
+   prompt 128, 32 steps); (c) the card against the CPU at full width
+   (whisper-tiny at published size, internvl2-2b at depth 2), the
+   cross keys and values ``xk``/``xv`` among the aligned caches; (d)
+   training through ``repro_torch.launch.train.main`` in process:
+   minicpm-2b at ``--preset full`` (batch 4 x 128, wsd, 6 steps: step
+   ms, tokens/s, loss and grad norm per step, peak memory, one step's
+   kernels under the profiler), ``--preset 100m`` 8 steps straight
+   against 4 steps with a checkpoint every 2 and ``--resume`` to 8
+   (params, moments and step bit-equal, the loss falling),
+   whisper-tiny and internvl2-2b at ``--preset 100m`` (finite losses),
+   and one ``make_train_step`` of minicpm-2b at full width, depth 2,
+   fp32, the card against the CPU (the loss; every grad leaf within the
+   CPU grads' own sensitivity to a one-ulp move of the params, which the
+   random weights make large, and never tighter than 1e-3 of its scale;
+   the updated params where both grads agree in sign).  Phase 10's
+   tolerances; neither K1 nor K2 is launched.
 
 Kernel times are device times of back-to-back launches; ``bound_ms``
 counts each byte a call must move once, over the card's HBM rate.
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
-build seconds, per-phase times (the launches of phases 5-11 on lines of
+build seconds, per-phase times (the launches of phases 5-12 on lines of
 their own), the script's wall time, a ``{"kernels": [...]}`` JSON line
 (launch counts of phase 2) and, last, ``{"ok": true, "device": {...}}``.
 It exits non-zero without a CUDA device and when ``src/repro_torch`` is
@@ -1514,12 +1538,15 @@ def dropped(routes) -> "tuple[int, int]":
 def step_state_bytes(cfg, kinds, pos: int) -> "tuple[int, int]":
     """(KV bytes read, recurrent bytes read and written) of one decode step
     at ``pos`` over the batch: an attention layer reads its valid bf16
-    entries (positions 0..pos, at most ``window`` in a local one); a
-    recurrent layer reads and writes its bf16 conv inputs and fp32 state."""
+    entries (positions 0..pos, at most ``window`` in a local one), a
+    cross-attention layer besides them all ``enc_seq`` cross keys and
+    values; a recurrent layer reads and writes its bf16 conv inputs and
+    fp32 state."""
     kv = rec = 0
     for kind in kinds:
-        if kind in ("attn", "local"):
+        if kind in ("attn", "local", "xattn"):
             n = min(pos + 1, cfg.window) if kind == "local" and cfg.window else pos + 1
+            n += cfg.enc_seq if kind == "xattn" else 0
             kv += 2 * LLM_BATCH * n * cfg.n_kv_heads * cfg.resolved_head_dim * 2
         elif kind == "ssm":
             di = cfg.d_inner or 2 * cfg.d_model
@@ -1531,9 +1558,32 @@ def step_state_bytes(cfg, kinds, pos: int) -> "tuple[int, int]":
     return kv, rec
 
 
+def lm_extras(cfg, b: int, rng) -> dict:
+    """The inputs a config reads besides the tokens, drawn from ``rng``:
+    encoder frames (B, enc_seq, d_model) or image patches (B, n_patches,
+    d_model), fp32 numpy ({} for a decoder-only config)."""
+    import numpy as np
+
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal((b, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+    if cfg.n_patches:
+        out["patches"] = rng.standard_normal((b, cfg.n_patches, cfg.d_model), dtype=np.float32)
+    return out
+
+
+def on(dev, extra: dict) -> dict:
+    import torch
+
+    return {k: torch.as_tensor(v, device=dev) for k, v in extra.items()}
+
+
 def llm_serve(dev, cfg):
     """(a): two serves of the same 8 requests at published size in bf16,
-    as `launch.serve llm` serves them."""
+    as `launch.serve llm` serves them; a config that reads frames or
+    patches is served wave by wave through ``ServeEngine.generate(...,
+    extra_batch=)`` (the reference's entry for it; ``serve`` refuses it),
+    each wave's inputs drawn from seed 0."""
     import statistics
 
     import numpy as np
@@ -1557,16 +1607,30 @@ def llm_serve(dev, cfg):
     rng = np.random.default_rng(0)
     lens = rng.integers(32, LLM_PROMPT_PAD + 1, size=LLM_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    rng_x = np.random.default_rng(0)
+    waves = [prompts[w:w + LLM_BATCH] for w in range(0, LLM_REQUESTS, LLM_BATCH)]
+    extras = [lm_extras(cfg, LLM_BATCH, rng_x) for _ in waves]
+    npch = cfg.n_patches
+
+    def padded(wave):
+        out = np.zeros((LLM_BATCH, LLM_PROMPT_PAD), np.int32)
+        for i, p in enumerate(wave):
+            out[i, LLM_PROMPT_PAD - len(p):] = p  # left-pad, as serve() does
+        return out
 
     runs = []
     for _ in range(2):
         torch.cuda.reset_peak_memory_stats()
         rec = timed_steps(model, dev)
-        reqs = [Request(uid=i, prompt=p, max_new=LLM_MAX_NEW) for i, p in enumerate(prompts)]
         t = time.perf_counter()
-        done = engine.serve(reqs, prompt_pad=LLM_PROMPT_PAD)
+        if extras[0]:
+            toks = np.concatenate([engine.generate(padded(w), LLM_MAX_NEW, extra_batch=x)
+                                   for w, x in zip(waves, extras)])
+        else:
+            reqs = [Request(uid=i, prompt=p, max_new=LLM_MAX_NEW) for i, p in enumerate(prompts)]
+            toks = np.array([r.out_tokens for r in engine.serve(reqs, prompt_pad=LLM_PROMPT_PAD)])
         rec["wall_s"] = time.perf_counter() - t
-        rec["tokens"] = np.array([r.out_tokens for r in done])
+        rec["tokens"] = toks
         del model.prefill, model.decode_step  # back to the class's methods
         rec["peak_bytes"] = torch.cuda.max_memory_allocated()
         runs.append(rec)
@@ -1583,7 +1647,7 @@ def llm_serve(dev, cfg):
     # experts over their capacity slots), the valid KV entries (mean over
     # the steps) and the recurrent states, the logits written
     states = [step_state_bytes(cfg, model.kinds, pos)
-              for pos in range(LLM_PROMPT_PAD, max_seq - 1)]
+              for pos in range(npch + LLM_PROMPT_PAD, npch + max_seq - 1)]
     kv_bytes = statistics.mean(kv for kv, _ in states)
     rec_bytes = states[0][1]
     logit_bytes = LLM_BATCH * cfg.padded_vocab * 2
@@ -1591,12 +1655,16 @@ def llm_serve(dev, cfg):
     bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     n_tok = int(runs[1]["tokens"].size)
     kinds = ",".join(dict.fromkeys(model.kinds))
+    inputs = "".join(f"; {k} {tuple(x.shape)} per wave (seed 0)" for k, x in extras[0].items())
+    if cfg.is_encoder_decoder:
+        inputs += f", {cfg.n_enc_layers} encoder layers"
     print(f"llm (a) {cfg.name} at published size: {cfg.n_layers} layers ({kinds}), d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded "
-          f"to {cfg.padded_vocab}; {n_params} params ({param_bytes} B; bf16 but for "
+          f"to {cfg.padded_vocab}{inputs}; {n_params} params ({param_bytes} B; bf16 but for "
           f"{n_fp32} FP32_PARAMS leaves), init + cast {init_s:.3f} s; {LLM_REQUESTS} requests "
           f"in {len(runs[1]['prefill'])} waves of {LLM_BATCH}, prompts {sorted(lens.tolist())} "
-          f"left-padded to {LLM_PROMPT_PAD}, {LLM_MAX_NEW} new tokens each; every token in "
+          f"left-padded to {LLM_PROMPT_PAD}, {LLM_MAX_NEW} new tokens each"
+          f"{' (generate with extra_batch)' if extras[0] else ''}; every token in "
           f"[0, {cfg.vocab_size}), logits finite, the second serve's tokens equal the first's")
     for i, rec in enumerate(runs):
         dec = rec["decode"]
@@ -1607,7 +1675,9 @@ def llm_serve(dev, cfg):
               f"{n_tok / rec['wall_s']:.1f} tokens/s")
     p50 = statistics.median(runs[1]["decode"])
     print(f"  decode bytes bound {bound_ms:.4f} ms ({step_bytes:.0f} B a step: params "
-          f"{param_bytes}, KV read {kv_bytes:.0f} mean, recurrent states read + written "
+          f"{param_bytes}, KV read {kv_bytes:.0f} mean"
+          f"{' (self KV valid, cross KV whole)' if cfg.is_encoder_decoder else ''}, "
+          f"recurrent states read + written "
           f"{rec_bytes}, logits {logit_bytes}); steady p50 is {p50 / bound_ms:.2f}x the "
           f"bound; peak device memory {runs[1]['peak_bytes']} B")
     if cfg.is_moe:
@@ -1622,17 +1692,16 @@ def llm_serve(dev, cfg):
     # MoE routing.
     from repro_torch.serve.engine import align_prefill_caches
 
-    wave = np.zeros((LLM_BATCH, LLM_PROMPT_PAD), np.int32)
-    for i, p in enumerate(prompts[:LLM_BATCH]):
-        wave[i, LLM_PROMPT_PAD - len(p):] = p
-    tt = torch.as_tensor(wave, dtype=torch.int64, device=dev)
+    tt = torch.as_tensor(padded(waves[0]), dtype=torch.int64, device=dev)
+    batch = dict(tokens=tt, **on(dev, extras[0]))
     with torch.inference_mode():
         with routing_log() as routes:
-            logits, caches = model.prefill(dict(tokens=tt))
-        caches = align_prefill_caches(model, caches, LLM_PROMPT_PAD, max_seq, LLM_BATCH)
+            logits, caches = model.prefill(batch)
+        caches = align_prefill_caches(model, caches, npch + LLM_PROMPT_PAD, npch + max_seq,
+                                      LLM_BATCH)
         tok = logits.argmax(-1)
-        pre = profiled_device_ms(lambda: model.prefill(dict(tokens=tt)))
-        step = profiled_device_ms(lambda: model.decode_step(caches, tok, LLM_PROMPT_PAD))
+        pre = profiled_device_ms(lambda: model.prefill(batch))
+        step = profiled_device_ms(lambda: model.decode_step(caches, tok, npch + LLM_PROMPT_PAD))
     if cfg.is_moe:
         n_drop, n_routed = dropped(routes)
         print(f"  MoE routing of the first wave's prefill: {len(routes)} MoE layers x "
@@ -1651,23 +1720,26 @@ def llm_serve(dev, cfg):
     free()
 
 
-def decode_vs_forward(model, toks, plen, dev):
-    """Prefill ``toks[:, :plen]``, align, decode the rest teacher-forced;
-    the worst |decode - forward| of the prefill logits and of the steps,
-    and the forward logits' largest magnitude."""
+def decode_vs_forward(model, toks, plen, dev, extra=None):
+    """Prefill ``toks[:, :plen]`` (with ``extra``'s frames or patches),
+    align, decode the rest teacher-forced; the worst |decode - forward| of
+    the prefill logits and of the steps, and the forward logits' largest
+    magnitude."""
     import torch
     from repro_torch.serve.engine import align_prefill_caches
 
     b, s = toks.shape
+    npch = model.cfg.n_patches
     tt = torch.as_tensor(toks, dtype=torch.int64, device=dev)
+    ex = on(dev, extra or {})
     with torch.inference_mode():
-        full, _ = model.forward(dict(tokens=tt))
-        last, caches = model.prefill(dict(tokens=tt[:, :plen]))
-        caches = align_prefill_caches(model, caches, plen, s, batch=b)
+        full, _ = model.forward(dict(tokens=tt, **ex))
+        last, caches = model.prefill(dict(tokens=tt[:, :plen], **ex))
+        caches = align_prefill_caches(model, caches, npch + plen, npch + s, batch=b)
         pre = float((last - full[:, plen - 1]).abs().max())
         worst = torch.zeros((), device=dev)
         for t in range(plen, s):
-            logits, caches = model.decode_step(caches, tt[:, t], t)
+            logits, caches = model.decode_step(caches, tt[:, t], npch + t)
             worst = torch.maximum(worst, (logits - full[:, t]).abs().max())
         v = model.cfg.vocab_size
         return pre, float(worst), float(full[..., :v].abs().max())
@@ -1684,7 +1756,7 @@ def decode_checks(dev, cases, rng):
         model = llm_model(c, dev, torch.float32)
         toks = rng.integers(0, c.vocab_size, (b, plen + steps))
         with routing_log() as routes:
-            pre, worst, scale = decode_vs_forward(model, toks, plen, dev)
+            pre, worst, scale = decode_vs_forward(model, toks, plen, dev, lm_extras(c, b, rng))
         n_params = sum(p.numel() for p in model.parameters())
         kinds = "".join(k[0] for k in model.kinds)
         del model
@@ -1720,17 +1792,18 @@ def card_vs_cpu(dev, c, rng, tag, b, plen, steps):
     card = llm_model(c, dev, torch.float32)
     card.load_state_dict(host.state_dict())
     toks = rng.integers(0, c.vocab_size, (b, plen + steps))
+    extra, npch = lm_extras(c, b, rng), c.n_patches
     out = {}
     for name, m in (("cpu", host), ("card", card)):
         tt = torch.as_tensor(toks, dtype=torch.int64, device=m.device)
         with torch.inference_mode(), routing_log() as routes:
-            last, caches = m.prefill(dict(tokens=tt[:, :plen]))
-            caches = align_prefill_caches(m, caches, plen, plen + steps, batch=b)
+            last, caches = m.prefill(dict(tokens=tt[:, :plen], **on(m.device, extra)))
+            caches = align_prefill_caches(m, caches, npch + plen, npch + plen + steps, batch=b)
             aligned = [{k: x.to("cpu", copy=True) for k, x in layer.items()}
                        for layer in caches]  # decode_step writes in place
             logits = [last.cpu()]
             for t in range(plen, plen + steps):
-                lg, caches = m.decode_step(caches, tt[:, t], t)
+                lg, caches = m.decode_step(caches, tt[:, t], npch + t)
                 logits.append(lg.cpu())
         out[name] = (torch.stack(logits), aligned, routes)
     (lg_cpu, c_cpu, r_cpu), (lg_card, c_card, r_card) = out["cpu"], out["card"]
@@ -1756,8 +1829,11 @@ def card_vs_cpu(dev, c, rng, tag, b, plen, steps):
                     for x, y in zip(c_card, c_cpu) for k in y)
     scale = float(lg_cpu[..., :c.vocab_size].abs().max())
     kinds = "".join(k[0] for k in host.kinds)
+    names = sorted({k for layer in c_cpu for k in layer})
     print(f"llm {tag} {c.name} fp32 at depth {c.n_layers} ({kinds}), full width, card against "
-          f"CPU (one CPU init): batch {b}, prompt {plen}, {steps} teacher-forced decode steps: "
+          f"CPU (one CPU init): batch {b}, prompt {plen}"
+          f"{''.join(f', {k} {tuple(x.shape)}' for k, x in extra.items())}, {steps} "
+          f"teacher-forced decode steps, caches {'/'.join(names)}: "
           f"worst |card - cpu| prefill {pre:.3e} (tol {LLM_PREFILL_ATOL}), decode {worst:.3e} "
           f"(tol {LLM_DECODE_ATOL}), aligned caches {cache_rel:.3e} of their scale (tol "
           f"{LLM_CACHE_RTOL}); max |logit| {scale:.4f}{moe}; {time.perf_counter() - t0:.3f} s")
@@ -1890,6 +1966,283 @@ def phase_llm11(dev, rng):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: whisper-tiny and internvl2-2b served, and the training path
+# ---------------------------------------------------------------------------
+
+#: (a)'s archs at published size: (n_layers, d_model, vocab_size, params)
+LLM12_ARCHS = {
+    "whisper-tiny": (4, 384, 51_865, 42_265_344),
+    "internvl2-2b": (24, 2048, 92_553, 1_707_182_080),
+}
+#: (d): the launcher's default arch at published size, and its run
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "minicpm-2b", 4, 128, 6
+#: (d): card against CPU, one train step: each grad leaf within this share
+#: of its own scale (the CPU tests' tolerance against the reference) or
+#: within ULP_FACTOR times the CPU grads' largest change under ULP_BUMPS
+#: one-ulp moves of every param, whichever is larger (`train_card_vs_cpu`)
+TRAIN_GRAD_RTOL, ULP_FACTOR, ULP_BUMPS = 1e-3, 8.0, 3
+#: H100 SXM dense bf16 peak (NVIDIA data sheet), FLOP/s
+BF16_FLOPS = 989e12
+
+
+def spec_params(cfg) -> int:
+    """Parameters of ``cfg``'s spec tree (computed from shapes, nothing
+    allocated)."""
+    import math
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_segments, model_specs
+
+    return sum(math.prod(s.shape) for _, s in L.tree_leaves(model_specs(cfg, build_segments(cfg))))
+
+
+def run_train(argv) -> "tuple[dict, list[str]]":
+    """`python -m repro_torch.launch.train ... --device cuda` in process;
+    its result and printed lines."""
+    from repro_torch.launch import train as train_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train_cli.main([*argv, "--device", "cuda"])
+    return out, buf.getvalue().splitlines()
+
+
+def finite_run(out, what: str) -> None:
+    import math
+
+    vals = out["losses"] + out["grad_norms"]
+    check(vals and all(math.isfinite(v) for v in vals), f"{what}: a non-finite loss or grad norm")
+
+
+def train_full(dev):
+    """(d) minicpm-2b at published size through the launcher (fp32
+    masters, bf16 compute, remat "block", AdamW, wsd): step times, loss
+    and grad norm per step, peak memory; then one more step under the
+    profiler (kernels and device ms against the host's step time)."""
+    import statistics
+
+    import torch
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.optim.adamw import AdamWConfig, constant_schedule
+    from repro_torch.train.steps import make_train_step
+
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out, lines = run_train(["--arch", TRAIN_ARCH, "--preset", "full", "--batch", str(TRAIN_BATCH),
+                            "--seq", str(TRAIN_SEQ), "--schedule", "wsd",
+                            "--steps", str(TRAIN_STEPS)])
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    finite_run(out, f"train {TRAIN_ARCH} full")
+    model, params, state = out["model"], out["params"], out["opt_state"]
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in params.values())
+    check(n_params == 2_725_173_504, f"train {TRAIN_ARCH}: {n_params} params, not the published")
+    state_bytes = sum(x.numel() * x.element_size() for x in params.values()) + sum(
+        x.numel() * x.element_size() for k in ("m", "v") for x in state[k].values())
+    ms = [1e3 * x for x in out["step_s"]]
+    p50 = statistics.median(ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    print(f"train (d) {TRAIN_ARCH} --preset full through `launch.train.main` on the card: "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size} padded to "
+          f"{cfg.padded_vocab}; {n_params} params, fp32 masters + m + v {state_bytes} B, remat "
+          f"{model.pc.remat}; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, wsd, {TRAIN_STEPS} steps in "
+          f"{wall:.3f} s (model init included)")
+    for i, (l, g, lr, x) in enumerate(zip(out["losses"], out["grad_norms"], out["lrs"], ms)):
+        print(f"  step {i}: loss {l:.6f} grad norm {g:.6f} lr {lr:.3e} {x:.3f} ms")
+    print(f"  step ms p50 {p50:.3f} (steps 1-{TRAIN_STEPS - 1}; first {ms[0]:.3f}), "
+          f"{tokens / p50 * 1e3:.1f} tokens/s; peak device memory {peak} B; 6 x params x "
+          f"tokens = {flops:.4e} FLOP, {flops / BF16_FLOPS * 1e3:.4f} ms at the bf16 peak "
+          f"({p50 / (flops / BF16_FLOPS * 1e3):.2f}x)")
+    data = Pipeline(DataConfig(batch_per_host=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               vocab_size=cfg.vocab_size))
+    batch = on(dev, data.get_batch(TRAIN_STEPS))
+    step = make_train_step(model, constant_schedule(out["lrs"][-1]), AdamWConfig())
+    prof = profiled_device_ms(lambda: step(params, state, batch))
+    if prof is None:
+        print("  profiler: no device events for the train step: not measured")
+    else:
+        n, dev_ms = prof
+        print(f"  profiler, one train step: {n} CUDA kernels, {dev_ms:.3f} ms on the card against "
+              f"{p50:.3f} ms on the host clock (busy share {dev_ms / p50:.4f})")
+    del out, model, params, state, step
+    free()
+
+
+def train_resume(dev):
+    """(d) `--preset 100m`: 8 steps straight against 4 steps with a
+    checkpoint every 2 (device snapshots through ``defer_snapshot``) and
+    a ``--resume`` to 8: params, m, v and step bit-equal on this card, the
+    resumed losses the straight run's, the loss falling."""
+    import torch
+
+    t = time.perf_counter()
+    # the writer thread may pre-create its next spool file after wait()
+    # returns (`ckpt.manager._DirWriter._loop`): a late file, not an error
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_", ignore_cleanup_errors=True) as ck:
+        straight, _ = run_train(["--preset", "100m", "--steps", "8"])
+        first, _ = run_train(["--preset", "100m", "--steps", "4", "--ckpt-dir", ck,
+                              "--ckpt-every", "2"])
+        resumed, lines = run_train(["--preset", "100m", "--steps", "8", "--ckpt-dir", ck,
+                                    "--ckpt-every", "2", "--resume"])
+    for out, what in ((straight, "straight"), (first, "first 4"), (resumed, "resumed")):
+        finite_run(out, f"train 100m {what}")
+    check("resumed from step 4" in lines, f"train 100m resume: printed {lines[:3]}")
+    check(resumed["losses"] == straight["losses"][4:],
+          f"train 100m: resumed losses {resumed['losses']} != {straight['losses'][4:]}")
+    diff = [n for n, p in straight["params"].items() if not torch.equal(resumed["params"][n], p)]
+    diff += [f"{k}.{n}" for k in ("m", "v") for n, x in straight["opt_state"][k].items()
+             if not torch.equal(resumed["opt_state"][k][n], x)]
+    check(not diff, f"train 100m: resumed state != the uninterrupted run's: {diff[:4]}")
+    check(int(resumed["opt_state"]["step"]) == int(straight["opt_state"]["step"]) == 8,
+          "train 100m: the optimizer step is not 8")
+    ls = straight["losses"]
+    check(ls[-1] < ls[0], f"train 100m: the loss did not fall: {ls}")
+    n_params = sum(p.numel() for p in straight["params"].values())
+    print(f"train (d) {TRAIN_ARCH} --preset 100m ({n_params} params): 8 steps straight and 4 + "
+          f"--resume to 8 with a checkpoint every 2 (defer_snapshot of device copies): params, "
+          f"m, v and step bit-equal, losses equal ({', '.join(f'{x:.6f}' for x in ls)}); "
+          f"{time.perf_counter() - t:.3f} s")
+    del straight, first, resumed
+    free()
+
+
+def train_card_vs_cpu(dev, rng):
+    """(d) One `make_train_step` of minicpm-2b at full width, depth 2,
+    fp32, from one CPU init on the card and on the CPU, ``b1=0`` and no
+    clipping (the first moment is then the grad).
+
+    Random weights with the reference's fan-in quirk (std 1/sqrt(2) at
+    depth 2, `ROADMAP.md` §3) make these grads ill-conditioned in fp32:
+    the residual stream grows to about 1e4 over the embeddings' 0.1, and
+    the norms' backward cancels.  So the grads are held against the CPU
+    within the CPU's own sensitivity to rounding, measured in the same
+    run: the worst leaf's change (share of its scale) when every param
+    moves by one ulp (a random direction each, seeded; the largest of
+    `ULP_BUMPS` such moves, since one move's reading varies about 3x),
+    times `ULP_FACTOR`, and never tighter than `TRAIN_GRAD_RTOL`.  The loss
+    within 1e-4; the updated params within 1e-6 wherever both grads have
+    one sign and both |g| > 1e-4 (there AdamW's first step, ``lr * (g /
+    (|g| + eps) + wd * p)``, differs by at most ``lr * eps / |g|`` = 3e-8
+    between them); the sign flips are counted."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.train import build_model_config
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, constant_schedule
+    from repro_torch.train.steps import make_train_step
+
+    t0 = time.perf_counter()
+    c = dataclasses.replace(build_model_config(TRAIN_ARCH, "full"), n_layers=2)
+    cpu = torch.device("cpu")
+    host = llm_model(c, cpu, torch.float32, torch.Generator().manual_seed(0))
+    card = llm_model(c, dev, torch.float32)
+    card.load_state_dict(host.state_dict())
+    toks = rng.integers(0, c.vocab_size, (2, 65))
+    batch = dict(tokens=toks[:, :-1], labels=toks[:, 1:])
+
+    # the CPU grads' sensitivity to one ulp of every param
+    g = torch.Generator().manual_seed(1)
+    g_bumped = []
+    for _ in range(ULP_BUMPS):
+        bumped = {}
+        for n, p in host.named_parameters():
+            up = torch.rand(p.shape, generator=g) < 0.5
+            bumped[n] = torch.nextafter(p.detach(), torch.where(up, torch.inf, -torch.inf)
+                                        ).requires_grad_(True)
+        loss_b, _ = host.loss_fn(on(cpu, batch), params=bumped)
+        g_bumped.append(dict(zip(bumped, torch.autograd.grad(loss_b, list(bumped.values())))))
+        del bumped, loss_b
+
+    opt = AdamWConfig(b1=0.0, clip_norm=0.0)
+    out = {}
+    for name, m in (("cpu", host), ("card", card)):
+        P = m.train_params()
+        step = make_train_step(m, constant_schedule(3e-4), opt)
+        P, state, metrics = step(P, adamw_init(P, opt), on(m.device, batch))
+        out[name] = (float(metrics["loss"]), {n: x.cpu() for n, x in state["m"].items()},
+                     {n: p.detach().cpu() for n, p in P.items()})
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = out["cpu"], out["card"]
+    rel = lambda a, b: max(float((a[n] - x).abs().max()) / max(float(x.abs().max()), 1e-30)
+                           for n, x in b.items())
+    grad_rel = rel(g_card, g_cpu)
+    ulp_rels = [rel(gb, g_cpu) for gb in g_bumped]
+    ulp_rel = max(ulp_rels)
+    tol = max(TRAIN_GRAD_RTOL, ULP_FACTOR * ulp_rel)
+    param_err, flips, n_same = 0.0, 0, 0
+    for n, x in g_cpu.items():
+        same = (torch.sign(x) == torch.sign(g_card[n])) & (torch.minimum(
+            x.abs(), g_card[n].abs()) > 1e-4)
+        flips += int((torch.sign(x) != torch.sign(g_card[n])).sum())
+        n_same += int(same.sum())
+        if same.any():
+            param_err = max(param_err, float((p_card[n] - p_cpu[n])[same].abs().max()))
+    n_params = sum(x.numel() for x in p_cpu.values())
+    print(f"train (d) {TRAIN_ARCH} fp32 at depth 2, full width ({n_params} params), one train "
+          f"step, card against CPU (one CPU init, remat {host.pc.remat}): loss {l_card:.6f} vs "
+          f"{l_cpu:.6f} (|diff| {abs(l_card - l_cpu):.3e}, tol 1e-4); worst grad leaf "
+          f"{grad_rel:.3e} of its scale over {len(g_cpu)} leaves, against the CPU's one-ulp "
+          f"sensitivity {', '.join(f'{x:.3e}' for x in ulp_rels)} (tol max({TRAIN_GRAD_RTOL}, "
+          f"{ULP_FACTOR} x the largest) = "
+          f"{tol:.3e}); updated params {param_err:.3e} (tol 1e-6) over the {n_same} entries "
+          f"with one grad sign and both |g| > 1e-4, {flips} grad signs differ; "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(abs(l_card - l_cpu) <= 1e-4, f"train card vs cpu: loss {l_card} vs {l_cpu}")
+    check(grad_rel <= tol, f"train card vs cpu: grads {grad_rel} of scale (tol {tol})")
+    check(param_err <= 1e-6, f"train card vs cpu: updated params {param_err}")
+    del host, card, out, g_bumped
+    free()
+
+
+def phase_llm12(dev, rng):
+    """whisper-tiny's encoder-decoder and internvl2-2b's patch prefix served
+    on the card, and the training path: (a) both at published size in
+    bf16 through ``generate(..., extra_batch=)``; (b) fp32 decode against
+    the forward at published size; (c) the card against the CPU (whisper
+    at published size, internvl2 at depth 2); (d) training through
+    `launch.train.main`: minicpm-2b at published size, the 100m resume,
+    whisper-tiny and internvl2-2b at 100m, one train step card against
+    CPU.  Neither K1 nor K2 is launched."""
+    import dataclasses
+
+    from repro_torch.launch.train import build_model_config
+
+    check_tf32_off()
+    t_phase = time.time()
+    zero_launches()
+    cfgs = {}
+    for arch, size in LLM12_ARCHS.items():
+        cfgs[arch] = cfg = build_model_config(arch, "full")
+        n = spec_params(cfg)
+        check((cfg.n_layers, cfg.d_model, cfg.vocab_size, n) == size,
+              f"{arch}: not the published size ({n} params)")
+        llm_serve(dev, cfg)
+    wh, vl = (cfgs[a] for a in LLM12_ARCHS)
+    decode_checks(dev, [("(b)", wh, 2, 128, 32), ("(b)", vl, 2, 128, 32)], rng)
+    card_vs_cpu(dev, wh, rng, "(c)", 2, 64, 16)
+    card_vs_cpu(dev, dataclasses.replace(vl, n_layers=2), rng, "(c)", 2, 64, 16)
+    train_full(dev)
+    train_resume(dev)
+    for arch in LLM12_ARCHS:
+        t = time.perf_counter()
+        out, _ = run_train(["--arch", arch, "--preset", "100m", "--steps", "3"])
+        finite_run(out, f"train {arch} 100m")
+        print(f"train (d) {arch} --preset 100m, zero {'frames' if out['model'].cfg.enc_seq else 'patches'}: "
+              f"losses {', '.join(f'{x:.6f}' for x in out['losses'])}, grad norms "
+              f"{', '.join(f'{x:.4f}' for x in out['grad_norms'])}; "
+              f"{time.perf_counter() - t:.3f} s")
+        del out
+        free()
+    train_card_vs_cpu(dev, rng)
+    launched = k1_k2_idle("enc-dec/VLM serving and training path")
+    wall = time.time() - t_phase
+    print(f"llm12 phase: wall {wall:.3f} s; K1/K2 launches {json.dumps(launched)}")
+    return wall
+
+
 KERNELS = {
     "eval_mega": (
         "aig_sim.eval_mega",
@@ -1938,7 +2291,7 @@ def main() -> int:
     suite, cha, res, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
     mc, fused = phase_sweep(dev, suite, cha)
     times.update(phase_k2(dev, netlists, vectors))
-    # Phases 5-11 run after the kernel line's launch counts were taken
+    # Phases 5-12 run after the kernel line's launch counts were taken
     # (``launches`` is phase 2's); each phase sets the counts to 0 first.
     served = {n: suite[n] for n in SERVICE_CIRCUITS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1952,10 +2305,11 @@ def main() -> int:
     system_s = phase_system(dev, rng)
     llm_s = phase_llm(dev, rng)
     llm11_s = phase_llm11(dev, rng)
-    print(f"phases 5-11 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
+    llm12_s = phase_llm12(dev, rng)
+    print(f"phases 5-12 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
           f"CLI {cli_s:.3f} s, chaos {chaos_s:.3f} s, journal overhead {overhead_s:.3f} s, "
           f"system {system_s:.3f} s, LM serving {llm_s:.3f} s, MoE/recurrent LM serving "
-          f"{llm11_s:.3f} s")
+          f"{llm11_s:.3f} s, enc-dec/VLM serving and training {llm12_s:.3f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

@@ -9,7 +9,11 @@ Two subcommands share this entry point, both on ``--device`` (default
 
 ``llm`` builds the model from random weights (seed 0) in bf16 (the
 recurrent blocks' fp32 leaves stay fp32, `models.model.FP32_PARAMS`)
-and serves ``--requests`` random prompts.  ``explore`` spins up `serve.explore_service.ExplorationService` (a warm
+and serves ``--requests`` random prompts.  whisper-tiny and internvl2-2b
+read encoder frames or image patches besides the prompts, which
+``llm`` (as the reference's) does not pass: `ServeEngine.serve` refuses
+them with a `ValueError` naming the input; serve them through
+``ServeEngine.generate(..., extra_batch=)``.  ``explore`` spins up `serve.explore_service.ExplorationService` (a warm
 persistent query engine on ``--device``, default ``cuda``), streams
 design queries at it, and prints per-request winners and service-time
 percentiles.

@@ -4,14 +4,16 @@ Takes plain numpy trees only (``jax.tree.map(np.asarray, params)`` on the
 reference's side), never objects of the reference package:
 
   * the param tree (``embed``, ``seg{i}.b{j}`` with scanned leaves stacked
-    on a leading layer axis, ``final_norm``) -> `params_from_reference`,
+    on a leading layer axis, ``final_norm``, and ``encoder`` /
+    ``patch_proj`` where the config has them) -> `params_from_reference`,
     which unstacks it into the port's per-layer modules and raises on a
     missing, extra or mis-shaped leaf;
   * the cache list (one ``{b{j}: ...}`` tree per segment, scanned ones
-    stacked; ``{k, v}`` for attention, the tuple ``(conv_state, state)``
-    for the recurrent kinds) -> `caches_from_reference`, one dict per
-    layer (``{k, v}`` or ``{conv, state}``), and back with
-    `caches_to_reference`.
+    stacked; ``{k, v}`` for attention, ``{k, v, xk, xv}`` for
+    cross-attention, the tuple ``(conv_state, state)`` for the recurrent
+    kinds) -> `caches_from_reference`, one dict per layer (``{k, v}``,
+    ``{k, v, xk, xv}`` or ``{conv, state}``), and back with
+    `caches_to_reference`.  Both copy.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ def caches_to_reference(model: Model, caches: Sequence[Mapping]) -> list[dict]:
         for i, kind in enumerate(seg.kinds):
             layers = [caches[seg.first_layer + g * len(seg.kinds) + i]
                       for g in range(seg.n_groups)]
-            names = ("conv", "state") if kind in RECURRENT_KINDS else ("k", "v")
+            names = tuple(model.cache_logical(kind))
             # copies: decode_step writes the port's caches in place
             leaves = [np.stack([np.array(c[name].float().cpu()) for c in layers])
                       if seg.scanned else np.array(layers[0][name].float().cpu())

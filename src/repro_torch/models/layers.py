@@ -2,10 +2,10 @@
 
 Mirrors the reference's ``models/layers.py`` function by function: param
 specs, norms, rope, chunked online-softmax attention (train / prefill)
-and single-token decode attention against a KV cache, the gated MLP, the
+and single-token decode attention against a KV cache, the decoder's
+cross-attention over encoder keys and values, the gated MLP, the
 fine-grained MoE FFN (shared + routed top-k experts, sort-based dispatch
 into a capacity buffer), and the (padded-vocab) embedding.
-Cross-attention waits for its slice.
 
 Parameters are held by `ParamTree` modules whose leaves are addressed
 like the reference's param dicts (``p["wq"]``, ``"bq" in p``), so the
@@ -37,17 +37,18 @@ NEG = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """A leaf's shape and init.  The ported specs use only the reference's
-    default scale (1.0); its logical (sharding) axes are not kept."""
+    """A leaf's shape, init and std multiplier; the reference's logical
+    (sharding) axes are not kept."""
 
     shape: tuple[int, ...]
     init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0  # stddev multiplier on fan-in init
 
     def std(self) -> float:
         """The reference's rule: ``fan_in = shape[0]`` for a matrix, so for
         a stacked (scanned) leaf the fan-in is the layer count."""
         fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
-        return 1.0 / math.sqrt(max(1, fan_in))
+        return self.scale / math.sqrt(max(1, fan_in))
 
     def initializer(self, generator: torch.Generator) -> torch.Tensor:
         """An fp32 draw on ``generator``'s device."""
@@ -67,7 +68,7 @@ def is_spec(x) -> bool:
 def stack_specs(specs, n: int):
     """Prepend a scan ("layers") dim to every leaf spec."""
     if is_spec(specs):
-        return ParamSpec((n, *specs.shape), specs.init)
+        return dataclasses.replace(specs, shape=(n, *specs.shape))
     return {k: stack_specs(v, n) for k, v in specs.items()}
 
 
@@ -82,7 +83,8 @@ def tree_leaves(tree, prefix: str = ""):
 
 class ParamTree(nn.Module):
     """A nested dict of parameters as a module: leaves are `nn.Parameter`
-    (no grad; serving), sub-dicts are child `ParamTree` modules, and
+    (no grad until a trainer asks, `Model.train_params`), sub-dicts are
+    child `ParamTree` modules, and
     ``p[name]`` / ``name in p`` address both.  Leaves are allocated (as
     zeros) in ``dtype``, except those whose dotted path from the root is in
     ``fp32``, which stay fp32."""
@@ -230,13 +232,15 @@ def chunked_attention(
     window: int = 0,
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
+    cross: bool = False,
 ) -> torch.Tensor:
     """Online-softmax attention over kv chunks (flash-style, eager torch).
 
     The reference maps over q chunks and scans over kv chunks; here the q
     chunks ride along as a batch dim and the kv chunks are the loop, with
     the same per-chunk arithmetic (masked blocks computed, as there).
-    Causal masking is by absolute position (q position = q_offset + index).
+    Causal masking is by absolute position (q position = q_offset + index);
+    ``cross`` (queries over another sequence's keys) turns it off.
     """
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -257,7 +261,7 @@ def chunked_attention(
     acc = torch.zeros((nq, b, h, q_chunk, d), dtype=torch.float32, device=dev)
     for ki in range(nkv):
         s_ = _scores(qc, kc[ki])  # (nq,B,H,qc,kc)
-        if causal:
+        if causal and not cross:
             kv_pos = ki * kv_chunk + kv_pos_base
             diff = q_pos[:, :, None] - kv_pos[None, None, :]  # (nq,qc,kc)
             mask = diff >= 0
@@ -334,6 +338,44 @@ def attention_decode(p, x, cfg, kind: str, theta: float, cache: dict, pos: int):
     out = torch.einsum("bhqk,bkhd->bqhd", prob, vv)
     out = out.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
     return out @ p["wo"].to(x.dtype), cache
+
+
+def cross_attention_specs(cfg) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    return dict(
+        wq=ParamSpec((d, h * hd)),
+        wk=ParamSpec((d, kv * hd)),
+        wv=ParamSpec((d, kv * hd)),
+        wo=ParamSpec((h * hd, d)),
+    )
+
+
+def cross_attention(p, x, enc_kv, cfg, q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Decoder cross-attention; ``enc_kv = (k, v)`` precomputed from the
+    encoder output (`encode_kv`), un-repeated.  The chunked online-softmax
+    path, so the scores never materialize; the chunks are the reference's
+    defaults (not the model's), so a 1,500-frame encoder runs in chunks of
+    750."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
+    k, v = enc_kv
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), causal=False,
+                            cross=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    out = out.reshape(b, s, cfg.n_heads * hd)
+    return out.to(x.dtype) @ p["wo"].to(x.dtype)
+
+
+def encode_kv(p, enc_out, cfg):
+    """The cross-attention keys and values of the encoder output, (B,
+    S_enc, KV, D) each."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -498,7 +540,9 @@ def embed_specs(cfg) -> dict:
 
 
 def embed(p, tokens, cfg):
-    return p["tok"][tokens] * math.sqrt(cfg.d_model)
+    # F.embedding: the same rows as indexing; its backward on the card is a
+    # sorted segment sum, so a train step repeats bit for bit
+    return F.embedding(tokens, p["tok"]) * math.sqrt(cfg.d_model)
 
 
 def unembed(p, x, cfg):
@@ -512,5 +556,6 @@ def unembed(p, x, cfg):
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = NEG
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG)  # out of place: tanh's backward reads its output
     return logits

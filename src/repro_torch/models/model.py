@@ -1,37 +1,46 @@
-"""Model assembly of the port: config -> param specs -> forward / prefill /
-decode, for the decoder-only block kinds ``attn``, ``local`` (dense or
-MoE FFN), ``ssm`` (Mamba-2) and ``rglru`` (RG-LRU).
+"""Model assembly of the port: config -> param specs -> forward / loss /
+prefill / decode, for every block kind of the zoo: ``attn``, ``local``
+(dense or MoE FFN), ``ssm`` (Mamba-2), ``rglru`` (RG-LRU), ``xattn`` (a
+decoder block with cross-attention over the encoder, whisper) and the
+bidirectional ``enc`` blocks of the encoder, plus the image-patch prefix
+of a VLM (internvl2).
 
 `Model` is an `nn.Module` with one `layers.ParamTree` per layer in an
-`nn.ModuleList`.  Its `specs` keep the reference's tree (``embed``,
+`nn.ModuleList` (and the ``encoder`` tree and ``patch_proj`` where the
+config has them).  Its `specs` keep the reference's tree (``embed``,
 ``seg{i}`` with the scanned groups' leaves stacked on a leading layer
-axis, ``final_norm``): `init` draws each stacked leaf with the
-reference's per-leaf std (its fan-in quirk included, `ROADMAP.md` §3)
-and `load_tree` unstacks it into the layers, so the port computes the
-function the reference computes on the same tree.  One card, no
-sharding: the reference's mesh, rules and constraints are not ported,
-and the MoE dispatch runs as one group (the reference's
-``_moe_groups()`` without a mesh).
+axis, ``final_norm``, ``encoder``, ``patch_proj``): `init` draws each
+stacked leaf with the reference's per-leaf std (its fan-in quirk
+included, `ROADMAP.md` §3) and `load_tree` unstacks it into the layers,
+so the port computes the function the reference computes on the same
+tree; `to_tree` / `from_tree` carry a flat dict keyed like
+``named_parameters`` (params, grads, optimizer moments) to and from that
+layout.  One card, no sharding: the reference's mesh, rules and
+constraints are not ported, and the MoE dispatch runs as one group (the
+reference's ``_moe_groups()`` without a mesh).
 
 Caches are one dict per layer, updated in place by `decode_step`:
-``{k, v}`` for attention, ``{conv, state}`` for the recurrent kinds (the
-state fp32).  Cross-attention, the encoder and image patches raise
-`NotImplementedError` naming them.
+``{k, v}`` for attention, ``{k, v, xk, xv}`` for ``xattn`` (the encoder's
+cross-attention keys and values, filled once at prefill), ``{conv,
+state}`` for the recurrent kinds (the state fp32).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Mapping
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig, ParallelConfig
 
-IN_SLICE_KINDS = ("attn", "local", "ssm", "rglru")
+IN_SLICE_KINDS = ("attn", "local", "ssm", "rglru", "xattn", "enc")
 RECURRENT_KINDS = ("ssm", "rglru")
 
 #: Leaves the ops read in fp32 without casting them to the activations'
@@ -55,10 +64,6 @@ def _check_in_slice(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet (ported "
                 f"kinds: {IN_SLICE_KINDS})")
-    if cfg.n_patches:
-        raise NotImplementedError(f"{cfg.name}: n_patches (VLM) is not ported yet")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: is_encoder_decoder is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -82,7 +87,23 @@ def block_specs(cfg: ModelConfig, kind: str, layer_idx: int = 10**9) -> dict:
     if kind == "rglru":
         return dict(norm1=norm(), rglru=S.rglru_specs(cfg), norm2=norm(),
                     mlp=L.mlp_specs(cfg))
+    if kind == "xattn":  # decoder block with cross-attention (whisper)
+        return dict(norm1=norm(), attn=L.attention_specs(cfg),
+                    norm_x=norm(), xattn=L.cross_attention_specs(cfg),
+                    norm2=norm(), mlp=L.mlp_specs(cfg))
+    if kind == "enc":  # bidirectional encoder block
+        return dict(norm1=norm(), attn=L.attention_specs(cfg), norm2=norm(),
+                    mlp=L.mlp_specs(cfg))
     raise ValueError(f"unknown block kind {kind}")
+
+
+def encoder_specs(cfg: ModelConfig) -> dict:
+    """The encoder's ``b{i}`` blocks (unscanned), final norm and learned
+    positions over the ``enc_seq`` frames."""
+    enc: dict = {f"b{i}": block_specs(cfg, "enc") for i in range(cfg.n_enc_layers)}
+    enc["norm"] = L.ParamSpec((cfg.d_model,), init="zeros")
+    enc["pos_embed"] = L.ParamSpec((cfg.enc_seq, cfg.d_model), scale=0.02)
+    return enc
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +151,32 @@ def model_specs(cfg: ModelConfig, segments: list[Segment]) -> dict:
             seg_spec = L.stack_specs(seg_spec, seg.n_groups)
         specs[f"seg{si}"] = seg_spec
     specs["final_norm"] = L.ParamSpec((cfg.d_model,), init="zeros")
+    if cfg.is_encoder_decoder:
+        specs["encoder"] = encoder_specs(cfg)
+    if cfg.n_patches:
+        specs["patch_proj"] = L.ParamSpec((cfg.d_model, cfg.d_model))
     return specs
+
+
+def _nest(flat: Mapping[str, torch.Tensor]) -> dict:
+    """``{"a.b.c": t}`` -> ``{"a": {"b": {"c": t}}}``."""
+    out: dict = {}
+    for path, t in flat.items():
+        *parents, leaf = path.split(".")
+        d = out
+        for k in parents:
+            d = d.setdefault(k, {})
+        d[leaf] = t
+    return out
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="block"``: keep the outputs of the matmuls without batch
+    dims (the reference's ``dots_with_no_batch_dims_saveable``: ``x @ W``
+    lowers to ``mm``), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +185,7 @@ def model_specs(cfg: ModelConfig, segments: list[Segment]) -> dict:
 
 
 class Model(nn.Module):
-    """Specs / init / forward / prefill / decode on one device.
+    """Specs / init / forward / loss / prefill / decode on one device.
 
     ``device`` defaults to ``cuda`` and raises without a card unless
     ``"cpu"`` is asked for.  Parameters are allocated in ``param_dtype``
@@ -150,6 +196,11 @@ class Model(nn.Module):
     followed by `init`, which draws each leaf in fp32 and casts it on the
     way in, so it equals an fp32 `init` followed by `cast` without ever
     holding the whole fp32 model.
+
+    An encoder-decoder config reads ``batch["frames"]`` (B, enc_seq,
+    d_model), a VLM config ``batch["patches"]`` (B, n_patches, d_model):
+    precomputed embeddings, the reference's frontend stubs.  A batch
+    without them raises `ValueError` naming the input.
     """
 
     def __init__(
@@ -176,20 +227,61 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(
             L.ParamTree(block_specs(cfg, kind, i), dev, param_dtype, FP32_PARAMS)
             for i, kind in enumerate(self.kinds))
-        self.final_norm = nn.Parameter(
-            torch.zeros(cfg.d_model, dtype=param_dtype, device=dev), requires_grad=False)
+        zeros = lambda *shp: nn.Parameter(
+            torch.zeros(shp, dtype=param_dtype, device=dev), requires_grad=False)
+        self.final_norm = zeros(cfg.d_model)
+        self.encoder = (L.ParamTree(encoder_specs(cfg), dev, param_dtype)
+                        if cfg.is_encoder_decoder else None)
+        self.patch_proj = zeros(cfg.d_model, cfg.d_model) if cfg.n_patches else None
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
 
-    # -- specs / init -------------------------------------------------------
+    # -- specs / init / layouts ---------------------------------------------
 
     def specs(self) -> dict:
         return model_specs(self.cfg, self.segments)
 
     def param_shapes(self) -> dict:
         return {path: s.shape for path, s in L.tree_leaves(self.specs())}
+
+    def _targets(self, path: str) -> tuple[list[str], bool]:
+        """The ``named_parameters`` names a reference leaf path covers, in
+        group order, and whether the leaf is stacked (scanned)."""
+        head, _, rest = path.partition(".")
+        if not head.startswith("seg"):
+            return [path], False
+        seg = self.segments[int(head[3:])]
+        block, _, leaf = rest.partition(".")
+        i = int(block[1:])
+        return [f"layers.{seg.first_layer + g * len(seg.kinds) + i}.{leaf}"
+                for g in range(seg.n_groups)], seg.scanned
+
+    def to_tree(self, flat: Mapping[str, torch.Tensor]) -> dict:
+        """A flat dict keyed like ``named_parameters`` (params, grads or
+        moments) -> the reference's tree, scanned leaves stacked.  Every
+        leaf is a fresh tensor (a snapshot the caller may keep)."""
+        out = {}
+        for path, _ in L.tree_leaves(self.specs()):
+            names, scanned = self._targets(path)
+            out[path] = torch.stack([flat[n] for n in names]) if scanned else flat[names[0]].clone()
+        return _nest(out)
+
+    def from_tree(self, tree: Mapping) -> dict:
+        """The reference's tree -> a flat dict keyed like
+        ``named_parameters`` (views of the stacked leaves)."""
+        flat = {}
+        for path, t in L.tree_leaves(tree):
+            names, scanned = self._targets(path)
+            flat.update(zip(names, t.unbind(0) if scanned else (t,)))
+        return flat
+
+    def train_params(self) -> dict:
+        """The model's own parameters, keyed by name, set to require grad:
+        the ``params`` of `train.steps.make_train_step`, updated in place
+        (so the model serves what was trained)."""
+        return {n: p.requires_grad_(True) for n, p in self.named_parameters()}
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
@@ -227,33 +319,77 @@ class Model(nn.Module):
         return self
 
     def _assign(self, path: str, value: torch.Tensor) -> None:
-        head, _, rest = path.partition(".")
-        if head == "final_norm":
-            self.final_norm.copy_(value)
-        elif head == "embed":
-            self.embed[rest].copy_(value)
-        else:
-            seg = self.segments[int(head[3:])]
-            block, _, leaf = rest.partition(".")
-            i = int(block[1:])
-            for g in range(seg.n_groups):
-                layer = self.layers[seg.first_layer + g * len(seg.kinds) + i]
-                p = layer
-                for name in leaf.split("."):
-                    p = p[name]
-                p.copy_(value[g] if seg.scanned else value)
+        names, scanned = self._targets(path)
+        for g, name in enumerate(names):
+            self.get_parameter(name).copy_(value[g] if scanned else value)
+
+    def _view(self, params: "Mapping[str, torch.Tensor] | None" = None) -> dict:
+        """The params the forward reads: the model's own, or ``params``
+        (every name of ``named_parameters``, e.g. bf16 casts of them)."""
+        if params is None:
+            return dict(embed=self.embed, layers=list(self.layers), final_norm=self.final_norm,
+                        encoder=self.encoder, patch_proj=self.patch_proj)
+        tree = _nest(params)
+        return dict(embed=tree["embed"],
+                    layers=[tree["layers"][str(i)] for i in range(len(self.kinds))],
+                    final_norm=tree["final_norm"], encoder=tree.get("encoder"),
+                    patch_proj=tree.get("patch_proj"))
+
+    # -- inputs and the encoder ---------------------------------------------
+
+    def _required(self, batch: dict, name: str, rows: int) -> torch.Tensor:
+        if name not in batch:
+            raise ValueError(
+                f"{self.cfg.name} reads batch[{name!r}] (B, {rows}, {self.cfg.d_model}): "
+                f"precomputed {'encoder frame' if name == 'frames' else 'image patch'} "
+                f"embeddings, and the batch has none")
+        return batch[name]
+
+    def _inputs(self, P: dict, batch: dict):
+        """Token embeddings with the projected patches prepended, and the
+        encoder output (or None)."""
+        cfg, cd = self.cfg, self.compute_dtype
+        x = L.embed(P["embed"], batch["tokens"], cfg).to(cd)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_out = self._encoder(P["encoder"], self._required(batch, "frames", cfg.enc_seq))
+        if cfg.n_patches:
+            patches = self._required(batch, "patches", cfg.n_patches).to(cd)
+            x = torch.cat([patches @ P["patch_proj"].to(cd), x], dim=1)
+        return x, enc_out
+
+    def _encoder(self, enc, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper-style bidirectional encoder over precomputed frame
+        embeddings: learned positions plus RoPE at ``arange(enc_seq)``."""
+        cfg, cd = self.cfg, self.compute_dtype
+        x = frames.to(cd) + enc["pos_embed"].to(cd)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None, :]
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        for i in range(cfg.n_enc_layers):
+            p = enc[f"b{i}"]
+            h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+            q, k, v = L._project_qkv(p["attn"], h, cfg, positions, cfg.rope_theta)
+            out = L.chunked_attention(q, L._repeat_kv(k, n_rep), L._repeat_kv(v, n_rep),
+                                      causal=False, q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+            x = x + out.reshape(b, s, -1).to(x.dtype) @ p["attn"]["wo"].to(x.dtype)
+            h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+            x = x + L.mlp(p["mlp"], h, cfg)
+        return L.rms_norm(x, enc["norm"], cfg.norm_eps)
 
     # -- block forward (train/prefill) --------------------------------------
 
-    def _block_train(self, p, x, kind: str):
+    def _block_train(self, p, x, kind: str, enc_out=None):
         """One block over the whole sequence -> (x, prefill cache, MoE aux
         loss or None).  The cache is ``(k, v)`` un-repeated for attention,
-        ``dict(conv, state)`` for the recurrent kinds."""
+        ``(k, v, xk, xv)`` for ``xattn``, ``dict(conv, state)`` for the
+        recurrent kinds."""
         cfg = self.cfg
         h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-        if kind in ("attn", "local"):
-            out, cache = L.attention_train(p["attn"], h, cfg, kind, cfg.rope_theta,
-                                           q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+        if kind in ("attn", "local", "xattn"):
+            out, cache = L.attention_train(
+                p["attn"], h, cfg, "attn" if kind == "xattn" else kind, cfg.rope_theta,
+                q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
         elif kind == "ssm":
             out, cache = S.mamba2_forward(p["ssm"], h, cfg)
             return x + out, cache, None
@@ -262,6 +398,11 @@ class Model(nn.Module):
         else:
             raise ValueError(kind)
         x = x + out
+        if kind == "xattn":
+            h = L.rms_norm(x, p["norm_x"], cfg.norm_eps)
+            xkv = L.encode_kv(p["xattn"], enc_out, cfg)
+            x = x + L.cross_attention(p["xattn"], h, xkv, cfg)
+            cache = (*cache, *xkv)
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         aux = None
         if "moe" in p:
@@ -269,6 +410,15 @@ class Model(nn.Module):
         else:
             ff = L.mlp(p["mlp"], h, cfg)
         return x + ff, cache, aux
+
+    def _group_train(self, group, x, enc_out):
+        """The blocks of one scan group -> (x, summed aux loss)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p, kind in group:
+            x, _, a = self._block_train(p, x, kind, enc_out)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     # -- public forwards ----------------------------------------------------
 
@@ -278,15 +428,77 @@ class Model(nn.Module):
         x, aux = self.backbone(batch)
         return L.unembed(self.embed, x, self.cfg), aux
 
-    def backbone(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """Everything up to (but excluding) the unembedding -> (x, aux)."""
-        x = L.embed(self.embed, batch["tokens"], self.cfg).to(self.compute_dtype)
+    def backbone(self, batch: dict, params=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Everything up to (but excluding) the unembedding -> (x, aux),
+        the patch positions stripped.  ``params`` (see `_view`) replaces
+        the model's own.  Under autograd each scan group of a scanned
+        segment runs under `torch.utils.checkpoint` as ``pc.remat`` says
+        (the reference's ``jax.checkpoint`` of its scan body): ``full``
+        saves nothing, ``block`` saves the plain matmuls' outputs, ``none``
+        keeps everything."""
+        cfg = self.cfg
+        P = self._view(params)
+        x, enc_out = self._inputs(P, batch)
+        remat = self.pc.remat if torch.is_grad_enabled() else "none"
+        kw = dict(use_reentrant=False)
+        if remat == "block":
+            kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                 _save_dots)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p, kind in zip(self.layers, self.kinds):
-            x, _, aux = self._block_train(p, x, kind)
-            if aux is not None:
+        for seg in self.segments:
+            n = len(seg.kinds)
+            for g in range(seg.n_groups):
+                first = seg.first_layer + g * n
+                group = [(P["layers"][first + i], kind) for i, kind in enumerate(seg.kinds)]
+                run = functools.partial(self._group_train, group)
+                if seg.scanned and remat != "none":
+                    x, aux = ckpt.checkpoint(run, x, enc_out, **kw)
+                else:
+                    x, aux = run(x, enc_out)
                 aux_total = aux_total + aux
-        return L.rms_norm(x, self.final_norm, self.cfg.norm_eps), aux_total
+        x = L.rms_norm(x, P["final_norm"], cfg.norm_eps)
+        if cfg.n_patches:
+            x = x[:, cfg.n_patches:, :]
+        return x, aux_total
+
+    # -- loss ----------------------------------------------------------------
+
+    def loss_fn(self, batch: dict, aux_weight: float = 0.01, ce_chunk: int = 512,
+                params=None):
+        """Chunked cross-entropy -> (loss, dict(loss, aux, ntokens)).
+
+        The (B, S, V) fp32 logits are never materialized: each sequence
+        chunk is unembedded and reduced under `torch.utils.checkpoint` (the
+        reference checkpoints its scanned ``chunk_nll``), so the backward
+        recomputes one chunk's logits at a time.  ``batch`` holds
+        ``tokens``, ``labels`` and optionally ``mask`` (ones by default);
+        ``params`` as in `backbone`."""
+        cfg = self.cfg
+        P = self._view(params)
+        x, aux = self.backbone(batch, params)
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+
+        def chunk_nll(xq, lq, mq):
+            logits = L.unembed(P["embed"], xq, cfg).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lq[..., None])[..., 0]
+            return torch.sum((logz - gold) * mq)
+
+        s = x.shape[1]
+        c = L._pick_chunk(s, ce_chunk)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, c):
+            args = (x[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c])
+            if torch.is_grad_enabled():
+                total = total + ckpt.checkpoint(chunk_nll, *args, use_reentrant=False)
+            else:
+                total = total + chunk_nll(*args)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = total / denom + aux_weight * aux
+        return loss, dict(loss=loss, aux=aux, ntokens=denom)
 
     # -- KV cache / decode ---------------------------------------------------
 
@@ -301,9 +513,14 @@ class Model(nn.Module):
         cfg = self.cfg
         zeros = lambda *shp, dtype=self.compute_dtype: torch.zeros(
             shp, dtype=dtype, device=self.device)
-        if kind in ("attn", "local"):
-            shp = (batch, self.cache_len(kind, max_seq), cfg.n_kv_heads, cfg.resolved_head_dim)
-            return dict(k=zeros(*shp), v=zeros(*shp))
+        hd = cfg.resolved_head_dim
+        if kind in ("attn", "local", "xattn"):
+            shp = (batch, self.cache_len(kind, max_seq), cfg.n_kv_heads, hd)
+            c = dict(k=zeros(*shp), v=zeros(*shp))
+            if kind == "xattn":
+                xs = (batch, cfg.enc_seq, cfg.n_kv_heads, hd)
+                c.update(xk=zeros(*xs), xv=zeros(*xs))
+            return c
         if kind == "ssm":
             di = cfg.d_inner or 2 * cfg.d_model
             n = cfg.ssm_state
@@ -316,14 +533,31 @@ class Model(nn.Module):
                         state=zeros(batch, w, dtype=torch.float32))
         raise ValueError(kind)
 
+    def cache_logical(self, kind: str) -> dict:
+        """Logical axes of `cache_shape_for`'s entries (the reference's
+        names): alignment pads and rotates the ``kv_seq`` axis only, so the
+        cross-attention keys and values pass through it."""
+        if kind in ("attn", "local", "xattn"):
+            kv = ("batch", "kv_seq", "kv_heads", None)
+            c = dict(k=kv, v=kv)
+            if kind == "xattn":
+                c.update(xk=("batch", None, "kv_heads", None), xv=("batch", None, "kv_heads", None))
+            return c
+        if kind == "ssm":
+            return dict(conv=("batch", None, "ssm_inner"), state=("batch", "ssm_heads", None, None))
+        if kind == "rglru":
+            return dict(conv=("batch", None, "lru"), state=("batch", "lru"))
+        raise ValueError(kind)
+
     def init_cache(self, batch: int, max_seq: int) -> list[dict]:
         return [self.cache_shape_for(k, batch, max_seq) for k in self.kinds]
 
     def _block_decode(self, p, x, kind, cache, pos: int):
         cfg = self.cfg
         h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-        if kind in ("attn", "local"):
-            out, cache = L.attention_decode(p["attn"], h, cfg, kind, cfg.rope_theta, cache, pos)
+        if kind in ("attn", "local", "xattn"):
+            out, cache = L.attention_decode(p["attn"], h, cfg, "attn" if kind == "xattn" else kind,
+                                            cfg.rope_theta, cache, pos)
         elif kind == "ssm":
             out, cache = S.mamba2_decode(p["ssm"], h, cfg, cache)
             return x + out, cache
@@ -332,6 +566,9 @@ class Model(nn.Module):
         else:
             raise ValueError(kind)
         x = x + out
+        if kind == "xattn":
+            h = L.rms_norm(x, p["norm_x"], cfg.norm_eps)
+            x = x + L.cross_attention(p["xattn"], h, (cache["xk"], cache["xv"]), cfg)
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         if "moe" in p:
             ff, _ = L.moe_ffn(p["moe"], h, cfg)
@@ -341,8 +578,8 @@ class Model(nn.Module):
 
     def decode_step(self, caches: list[dict], token: torch.Tensor, pos: int):
         """One decode step.  token: (B,) ints on the model's device; pos: the
-        host int position, one for the whole batch.  The caches are updated
-        in place and returned."""
+        host int position, one for the whole batch (after the patch prefix,
+        if any).  The caches are updated in place and returned."""
         x = L.embed(self.embed, token[:, None], self.cfg).to(self.compute_dtype)
         for i, (p, kind) in enumerate(zip(self.layers, self.kinds)):
             x, caches[i] = self._block_decode(p, x, kind, caches[i], pos)
@@ -352,21 +589,26 @@ class Model(nn.Module):
 
     def prefill(self, batch: dict):
         """Prompt pass: returns (last-position logits, per-layer caches).
-        Local layers keep only their last ``window`` keys; recurrent layers
-        keep their conv inputs and final fp32 state."""
-        cfg = self.cfg
-        x = L.embed(self.embed, batch["tokens"], cfg).to(self.compute_dtype)
+        The encoder and the patch prefix run first; local layers keep only
+        their last ``window`` keys; ``xattn`` layers keep the encoder's
+        cross keys and values; recurrent layers keep their conv inputs and
+        final fp32 state."""
+        cfg, cd = self.cfg, self.compute_dtype
+        x, enc_out = self._inputs(self._view(), batch)
         caches = []
         for p, kind in zip(self.layers, self.kinds):
-            x, cache, _ = self._block_train(p, x, kind)
+            x, cache, _ = self._block_train(p, x, kind, enc_out)
             if kind in RECURRENT_KINDS:
                 caches.append(cache)
                 continue
-            k, v = cache
+            k, v, *xkv = cache
             if kind == "local" and cfg.window and cfg.window < x.shape[1]:
                 k = k[:, -cfg.window:]
                 v = v[:, -cfg.window:]
-            caches.append(dict(k=k.to(self.compute_dtype), v=v.to(self.compute_dtype)))
+            c = dict(k=k.to(cd), v=v.to(cd))
+            if xkv:
+                c.update(xk=xkv[0].to(cd), xv=xkv[1].to(cd))
+            caches.append(c)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = L.unembed(self.embed, x[:, -1:, :], cfg)
         return logits[:, 0, :], caches

@@ -5,12 +5,22 @@ Handles the cache-layout plumbing between the two phases:
   * local-attention ring caches are rotated so entry i holds absolute
     position p with p === i (mod window) -- the invariant decode_step's
     ring addressing relies on,
-  * recurrent states (SSD / RG-LRU) pass through unchanged.
+  * recurrent states (SSD / RG-LRU) and the encoder's cross-attention
+    keys and values pass through unchanged.
 
-The caches are one dict per layer (``{k, v}`` or ``{conv, state}``), and
-`align_prefill_caches` picks the action from each layer's kind, never
+The caches are one dict per layer (``{k, v}``, ``{k, v, xk, xv}`` or
+``{conv, state}``), and `align_prefill_caches` finds the sequence axis
+of each entry through the model's `cache_logical` (``kv_seq``), never
 from shapes: a window-full ring cache has the SAME shape as its
 allocation but still needs rotation whenever prompt_len % window != 0.
+
+A VLM's patch prefix holds the first ``n_patches`` positions of every
+cache, so `ServeEngine.generate` aligns to ``max_seq + n_patches`` and
+decodes from position ``n_patches + prompt_len``.  Encoder frames and
+patches reach the model only through ``generate(..., extra_batch=)``, as
+in the reference; `ServeEngine.serve` passes prompts only, so for such a
+config it raises a `ValueError` naming the missing input (where the
+reference fails with a ``KeyError`` inside prefill).
 
 A lightweight slot-based batcher (continuous-batching lite) serves
 variable-length requests on a fixed batch of decode slots.  Prompts are
@@ -25,10 +35,9 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..models.model import RECURRENT_KINDS, Model
+from ..models.model import Model
 
 
 def align_prefill_caches(model: Model, caches: list[dict], prompt_len: int,
@@ -37,21 +46,26 @@ def align_prefill_caches(model: Model, caches: list[dict], prompt_len: int,
     window = model.cfg.window
     out = []
     for kind, cache in zip(model.kinds, caches):
-        for name, pre in cache.items():
-            if pre.shape[0] != batch:
-                raise ValueError(f"cache {name}: batch {pre.shape[0]} != {batch}")
-        if kind in RECURRENT_KINDS:
-            out.append(cache)
-            continue
+        logical = model.cache_logical(kind)
         tgt_len = model.cache_len(kind, max_seq)
         ring = kind == "local" and window and tgt_len == window and prompt_len >= window
         fixed = {}
         for name, pre in cache.items():
-            cur = pre.shape[1]
-            t = pre if cur == tgt_len else F.pad(pre, (0, 0, 0, 0, 0, tgt_len - cur))
+            if pre.shape[0] != batch:
+                raise ValueError(f"cache {name}: batch {pre.shape[0]} != {batch}")
+            if "kv_seq" not in logical[name]:
+                fixed[name] = pre
+                continue
+            ax = logical[name].index("kv_seq")
+            cur = pre.shape[ax]
+            t = pre
+            if cur != tgt_len:
+                pad = list(pre.shape)
+                pad[ax] = tgt_len - cur
+                t = torch.cat([pre, pre.new_zeros(pad)], dim=ax)
             if ring and prompt_len % window:
                 # full ring: rotate so abs position p sits at slot p % window
-                t = torch.roll(t, prompt_len % window, dims=1)
+                t = torch.roll(t, prompt_len % window, dims=ax)
             fixed[name] = t
         out.append(fixed)
     return out
@@ -95,16 +109,25 @@ class ServeEngine:
         return torch.multinomial(probs, 1, generator=self.generator)[:, 0]
 
     @torch.inference_mode()
-    def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
+    def generate(self, prompts: np.ndarray, max_new: int,
+                 extra_batch: "dict | None" = None) -> np.ndarray:
         """prompts: (B, L) int32 (padded to equal length).  Returns (B, max_new).
 
-        One host sync per step: the read-back of that step's tokens."""
+        ``extra_batch`` holds the inputs the config reads besides the
+        tokens (``frames`` (B, enc_seq, d_model) for an encoder-decoder,
+        ``patches`` (B, n_patches, d_model) for a VLM), arrays or tensors; they are
+        moved to the engine's device.  One host sync per step: the
+        read-back of that step's tokens."""
         b, plen = prompts.shape
         if b != self.batch:
             raise ValueError(f"prompts carry {b} rows for a batch of {self.batch}")
-        tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
-        logits, caches = self.model.prefill(dict(tokens=tokens))
-        caches = align_prefill_caches(self.model, caches, plen, self.max_seq, batch=b)
+        batch = dict(tokens=torch.as_tensor(np.asarray(prompts, np.int64), device=self.device))
+        for name, x in (extra_batch or {}).items():
+            batch[name] = torch.as_tensor(x, device=self.device)
+        logits, caches = self.model.prefill(batch)
+        n_patches = self.model.cfg.n_patches or 0
+        caches = align_prefill_caches(self.model, caches, plen + n_patches,
+                                      self.max_seq + n_patches, batch=b)
 
         out = np.zeros((b, max_new), np.int32)
         tok = self._sample(logits)
@@ -112,7 +135,7 @@ class ServeEngine:
             out[:, t] = tok.cpu().numpy()
             if t == max_new - 1:
                 break
-            logits, caches = self.model.decode_step(caches, tok, plen + t)
+            logits, caches = self.model.decode_step(caches, tok, n_patches + plen + t)
             tok = self._sample(logits)
         return out
 
@@ -124,8 +147,18 @@ class ServeEngine:
 
         Every prompt must satisfy ``1 <= len(prompt) <= prompt_pad``; a
         violating request raises `ValueError` up front (naming the uid)
-        rather than surfacing as a numpy broadcast error mid-wave.
+        rather than surfacing as a numpy broadcast error mid-wave.  So does
+        a config that reads frames or patches: serve passes prompts only
+        (use ``generate(..., extra_batch=)``).
         """
+        cfg = self.model.cfg
+        missing = [n for n, needed in (("frames", cfg.is_encoder_decoder),
+                                       ("patches", cfg.n_patches)) if needed]
+        if missing:
+            raise ValueError(
+                f"{cfg.name} reads {', '.join(missing)} besides the prompts, and "
+                f"serve() passes prompts only: call generate(prompts, max_new, "
+                f"extra_batch={{{', '.join(repr(m) + ': ...' for m in missing)}}})")
         for r in requests:
             if not 0 < len(r.prompt) <= prompt_pad:
                 raise ValueError(

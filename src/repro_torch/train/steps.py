@@ -1,0 +1,86 @@
+"""Training step factory of the port: loss + grad + clip + AdamW, with
+microbatch gradient accumulation and optional gradient compression.
+
+Value and grad come from `torch.autograd` through `Model.loss_fn`; the
+step is eager, on the model's device, and syncs nothing with the host
+(the metrics stay tensors).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models.model import Model
+from ..optim.adamw import AdamWConfig, adamw_update, global_norm
+
+
+def make_train_step(
+    model: Model,
+    schedule: Callable,
+    opt_cfg: AdamWConfig,
+    grad_accum: int = 1,
+    cast_bf16: bool = False,
+    grad_shardings=None,
+):
+    """Returns train_step(params, opt_state, batch) -> (params, state, metrics).
+
+    ``params`` is a dict keyed like ``model.named_parameters()`` whose
+    tensors require grad (`Model.train_params`); they and ``opt_state``
+    (`optim.adamw.adamw_init`) are updated in place and returned.
+    ``batch`` tensors have leading dim = global batch; with ``grad_accum >
+    1`` they are split into microbatches along axis 0 and grads
+    accumulated in fp32, each divided by ``grad_accum``.  Metrics:
+    ``loss``, ``lr``, ``grad_norm`` (of the accumulated, uncompressed,
+    unclipped grads) and ``step`` (after the update), 0-d tensors.
+
+    ``cast_bf16``: the forward reads bf16 casts of the fp32 master params
+    (one cast per step), and the grads flow back to the masters through
+    the cast.  ``grad_shardings`` places grads on a mesh in the reference;
+    one device has none, so anything but ``None`` raises `ValueError`.
+    """
+    if grad_shardings is not None:
+        raise ValueError("grad_shardings: the port runs on one device and shards nothing; "
+                         "pass None")
+
+    def grad_fn(params: dict, batch: dict):
+        fwd = params
+        if cast_bf16:
+            fwd = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                   for n, p in params.items()}
+        loss, aux = model.loss_fn(batch, params=fwd)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return loss.detach(), aux, dict(zip(params, grads))
+
+    def train_step(params: dict, opt_state: dict, batch: dict):
+        with torch.enable_grad():
+            if grad_accum > 1:
+                micro = {k: x.reshape(grad_accum, x.shape[0] // grad_accum, *x.shape[1:])
+                         for k, x in batch.items()}
+                grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                         for n, p in params.items()}
+                loss = 0.0
+                for i in range(grad_accum):
+                    mb_loss, _, g = grad_fn(params, {k: x[i] for k, x in micro.items()})
+                    for n in grads:
+                        grads[n] = grads[n] + g[n].float() / grad_accum
+                    loss = loss + mb_loss / grad_accum
+            else:
+                loss, _, grads = grad_fn(params, batch)
+
+        lr = schedule(opt_state["step"])
+        params, opt_state = adamw_update(grads, opt_state, params, lr, opt_cfg)
+        metrics = dict(loss=loss, lr=lr, grad_norm=global_norm(grads), step=opt_state["step"])
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(model: Model):
+    @torch.no_grad()
+    def eval_step(params: dict, batch: dict):
+        loss, _ = model.loss_fn(batch, params=params)
+        return dict(loss=loss)
+
+    return eval_step

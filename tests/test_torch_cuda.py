@@ -356,11 +356,23 @@ def test_evaluate_lowered_and_compare_system_on_card_equal_cpu(cuda_device):
                                cpu["energy_ratio_rcim_over_accel"], rtol=1e-12)
 
 
-def lm_card_against_cpu(cuda_device, cfg, S, P):
+def lm_extras(cfg, b) -> dict:
+    """Encoder frames (whisper) or image patches (internvl2), seeded."""
+    rng = np.random.default_rng(1)
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal((b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        out["patches"] = rng.standard_normal((b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def lm_card_against_cpu(cuda_device, cfg, S, P, atol=1e-4):
     """fp32 from one CPU init: the card's prefill logits, aligned caches
-    (KV, conv and recurrent states) and the teacher-forced decode steps
-    equal the CPU's within 1e-4 (the logits' scale is about 1-2), and
-    greedy `ServeEngine.generate` gives the CPU's tokens."""
+    (KV, cross KV, conv and recurrent states) and the teacher-forced
+    decode steps equal the CPU's within ``atol`` (the logits' scale is
+    about 1-2), and greedy `ServeEngine.generate` gives the CPU's tokens.
+    A config that reads frames or patches gets them from `lm_extras`."""
     from repro_torch.models.config import ParallelConfig
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine, align_prefill_caches
@@ -374,22 +386,24 @@ def lm_card_against_cpu(cuda_device, cfg, S, P):
     gpu.load_state_dict(cpu.state_dict())
     B = 2
     toks = np.random.default_rng(0).integers(0, cpu.cfg.vocab_size, (B, S)).astype(np.int32)
+    extra, npch = lm_extras(cfg, B), cfg.n_patches
     got = {}
     for name, m in (("cpu", cpu), ("gpu", gpu)):
         tt = torch.as_tensor(toks, dtype=torch.int64, device=m.device)
+        ex = {k: torch.as_tensor(v, device=m.device) for k, v in extra.items()}
         with torch.inference_mode():
-            last, caches = m.prefill(dict(tokens=tt[:, :P]))
-            caches = align_prefill_caches(m, caches, P, S, batch=B)
+            last, caches = m.prefill(dict(tokens=tt[:, :P], **ex))
+            caches = align_prefill_caches(m, caches, npch + P, npch + S, batch=B)
             # decode_step writes the caches in place: snapshot a copy
             aligned = [{k: x.to("cpu", copy=True) for k, x in c.items()} for c in caches]
             steps = [last.cpu()]
             for t in range(P, S):
-                lg, caches = m.decode_step(caches, tt[:, t], t)
+                lg, caches = m.decode_step(caches, tt[:, t], npch + t)
                 steps.append(lg.cpu())
         out = ServeEngine(m, batch=B, max_seq=S, device=m.device.type).generate(
-            toks[:, :P], max_new=S - P)
+            toks[:, :P], max_new=S - P, extra_batch=extra)
         got[name] = (torch.stack(steps), aligned, out)
-    torch.testing.assert_close(got["gpu"][0], got["cpu"][0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got["gpu"][0], got["cpu"][0], rtol=0, atol=atol)
     for c_gpu, c_cpu in zip(got["gpu"][1], got["cpu"][1]):
         assert c_gpu.keys() == c_cpu.keys()
         for k in c_cpu:
@@ -420,3 +434,114 @@ def test_moe_and_recurrent_lm_on_card_equals_cpu(cuda_device, arch):
 
     cfg = dataclasses.replace(smoke_config(arch), n_layers=2)
     lm_card_against_cpu(cuda_device, cfg, 32, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
+def test_encoder_decoder_and_vlm_on_card(cuda_device, arch):
+    """The smoke configs on the card: fp32 decode against the
+    teacher-forced forward (the reference's 2e-3 prefill / 5e-3 decode),
+    then the card against the CPU (whisper's cross keys and values and
+    internvl2's patch prefix in the caches), the logits within 2e-4 (the
+    dense family's CPU parity tolerance, ``tests/test_torch_models.py``):
+    with the random frames whisper's decode logits move by 1.8e-5 under
+    a one-ulp change of every param on the CPU, twice minicpm-2b's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import align_prefill_caches
+
+    cfg = smoke_config(arch)
+    m = Model(cfg, ParallelConfig(), compute_dtype=torch.float32, q_chunk=8, kv_chunk=8,
+              device=cuda_device).init(torch.Generator(device=cuda_device).manual_seed(0))
+    B, S, P, npch = 2, 28, 20, cfg.n_patches
+    tt = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)),
+                         device=cuda_device)
+    ex = {k: torch.as_tensor(v, device=cuda_device) for k, v in lm_extras(cfg, B).items()}
+    with torch.inference_mode():
+        full, _ = m.forward(dict(tokens=tt, **ex))
+        last, caches = m.prefill(dict(tokens=tt[:, :P], **ex))
+        caches = align_prefill_caches(m, caches, npch + P, npch + S, batch=B)
+        assert float((last - full[:, P - 1]).abs().max()) < 2e-3
+        for t in range(P, S):
+            lg, caches = m.decode_step(caches, tt[:, t], npch + t)
+            assert float((lg - full[:, t]).abs().max()) < 5e-3, t
+    lm_card_against_cpu(cuda_device, cfg, S, P, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "whisper-tiny"])
+def test_train_step_on_card_equals_cpu(cuda_device, arch):
+    """One `make_train_step` from one CPU init, fp32, ``b1=0`` and no
+    clipping (the first moment is then the grad): the loss within 1e-5,
+    every grad within 1e-3 of its leaf's scale (the CPU tests' tolerance
+    against the reference: with the reference's fan-in init the CPU's
+    own fp32 grads are 1.6e-4 of scale off fp64 at this size), and the
+    updated params within 1e-6 wherever |g| is above 1e-2 of its leaf's
+    scale (where AdamW's first step, about ``lr * sign(g)``, cannot
+    flip)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, constant_schedule
+    from repro_torch.train.steps import make_train_step
+
+    cfg = smoke_config(arch)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 33))
+    batch = dict(tokens=toks[:, :-1], labels=toks[:, 1:], **lm_extras(cfg, 2))
+    opt = AdamWConfig(b1=0.0, clip_norm=0.0)
+    cpu = Model(cfg, ParallelConfig(), compute_dtype=torch.float32, q_chunk=8, kv_chunk=8,
+                device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, ParallelConfig(), compute_dtype=torch.float32, q_chunk=8, kv_chunk=8,
+                device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    out = {}
+    for name, m in (("cpu", cpu), ("gpu", gpu)):
+        P = m.train_params()
+        step = make_train_step(m, constant_schedule(1e-3), opt)
+        tb = {k: torch.as_tensor(v, device=m.device) for k, v in batch.items()}
+        P, state, metrics = step(P, adamw_init(P, opt), tb)
+        out[name] = (float(metrics["loss"]), {n: x.cpu() for n, x in state["m"].items()},
+                     {n: p.detach().cpu() for n, p in P.items()})
+    assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-5
+    for n, g in out["cpu"][1].items():
+        scale = float(g.abs().max())
+        assert float((out["gpu"][1][n] - g).abs().max()) <= 1e-3 * scale + 1e-30, n
+        sure = g.abs() > 1e-2 * scale
+        moved = (out["gpu"][2][n] - out["cpu"][2][n])[sure]
+        assert float(torch.cat([moved, torch.zeros(1)]).abs().max()) <= 1e-6, n
+
+
+@pytest.mark.cuda
+def test_train_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
+    """`launch.train` on the card saves through ``defer_snapshot`` (device
+    snapshots crossing to the host on the writer thread): 4 steps with a
+    checkpoint every 2, then ``--resume`` to 8, bit-equal to 8 steps
+    straight; the restored step-8 checkpoint equals the final state."""
+    import contextlib
+    import io
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import layers as L
+
+    def run(*argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return train_cli.main(["--device", "cuda", "--preset", "smoke", *argv])
+
+    ck = str(tmp_path)
+    straight = run("--steps", "8")
+    run("--steps", "4", "--ckpt-dir", ck, "--ckpt-every", "2")
+    resumed = run("--steps", "8", "--ckpt-dir", ck, "--ckpt-every", "2", "--resume")
+    assert resumed["losses"] == straight["losses"][4:]
+    for n, p in straight["params"].items():
+        assert torch.equal(resumed["params"][n], p), n
+    model = resumed["model"]
+    like = dict(p=model.specs(), o=dict(step=0, m=model.specs(), v=model.specs()))
+    tree, _ = CheckpointManager(ck).restore(like, device=cuda_device)
+    want = dict(p=model.to_tree(resumed["params"]),
+                o=dict(step=resumed["opt_state"]["step"], m=model.to_tree(resumed["opt_state"]["m"]),
+                       v=model.to_tree(resumed["opt_state"]["v"])))
+    for (path, got), (_, w) in zip(L.tree_leaves(tree), L.tree_leaves(want)):
+        assert got.device.type == "cuda" and got.dtype == w.dtype and torch.equal(got, w), path

@@ -43,6 +43,7 @@ from repro_torch.kernels import ops as POPS
 from repro_torch.configs import smoke_config as p_smoke_config
 from repro_torch.launch import chaos, cim_explore
 from repro_torch.launch import serve as p_serve
+from repro_torch.launch import train as p_train
 from repro_torch.models.model import Model as PModel
 from repro_torch.serve.engine import ServeEngine as PServeEngine
 from repro_torch.serve.explore_service import ExplorationService
@@ -230,6 +231,7 @@ ENTRY_POINTS = {
         PModel(p_smoke_config("minicpm-2b"), device="cpu"), batch=1, max_seq=8),
     "serve.main llm": lambda s: p_serve.main(["llm", "--preset", "smoke"]),
     "serve.main (bare)": lambda s: p_serve.main([]),
+    "train.main": lambda s: p_train.main(["--preset", "smoke", "--steps", "1"]),
 }
 
 

@@ -1,6 +1,7 @@
 """The port's LM (``repro_torch.models``) against the reference's: the
-dense family, the MoE family and the recurrent families (Mamba-2 and
-RG-LRU blocks).
+dense family, the MoE family, the recurrent families (Mamba-2 and
+RG-LRU blocks), the encoder-decoder (whisper-tiny: the encoder and the
+cross-attention ``xattn`` blocks) and the VLM patch prefix (internvl2-2b).
 
 Params come from the reference's ``Model.init`` and cross over as numpy
 through ``params_from_reference``; token inputs are made from a seed with
@@ -9,8 +10,10 @@ within ``atol=2e-4`` for the dense family (their scale is 1-5 here; the
 measured gap is 1e-6-3e-5, summation order) and ``1e-4`` for the new
 kinds, caches and recurrent states within ``rtol=1e-4`` (dense) and
 ``1e-5`` (new kinds) of their own scale, the MoE aux loss within 1e-6
-relative.  The port-alone checks keep the reference's own tolerances
-(2e-3 prefill, 5e-3 decode; ``tests/test_models.py``).
+relative.  The encoder-decoder and VLM archs are held as the new kinds,
+their frames and patches drawn from a seed with numpy.  The port-alone
+checks keep the reference's own tolerances (2e-3 prefill, 5e-3 decode;
+``tests/test_models.py``).
 """
 
 import dataclasses
@@ -35,7 +38,8 @@ from repro_torch.serve.engine import align_prefill_caches
 DENSE = ("minicpm-2b", "qwen1.5-4b", "gemma3-27b", "deepseek-coder-33b")
 MOE = ("deepseek-moe-16b", "moonshot-v1-16b-a3b")
 RECURRENT = ("mamba2-780m", "recurrentgemma-9b")
-ARCHS = DENSE + MOE + RECURRENT
+ENC_DEC_VLM = ("whisper-tiny", "internvl2-2b")
+ARCHS = DENSE + MOE + RECURRENT + ENC_DEC_VLM
 LOGIT_ATOL = 2e-4
 #: the new kinds' tolerances: logits (absolute), caches (share of their scale)
 NEW_LOGIT_ATOL, NEW_CACHE_RTOL = 1e-4, 1e-5
@@ -49,6 +53,26 @@ def lengths(arch):
 
 def tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def extras(cfg, b, seed=1) -> dict:
+    """The inputs a config reads besides the tokens, as numpy: encoder
+    frames (whisper) or image patches (internvl2)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal((b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        out["patches"] = rng.standard_normal((b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def jbatch(toks, extra) -> dict:
+    return dict(tokens=jnp.asarray(toks), **{k: jnp.asarray(v) for k, v in extra.items()})
+
+
+def tbatch(tt, extra) -> dict:
+    return dict(tokens=tt, **{k: torch.as_tensor(v) for k, v in extra.items()})
 
 
 def ref_model(arch, q_chunk=8):
@@ -82,52 +106,57 @@ def test_forward_prefill_caches_and_decode_equal_the_reference(arch):
     """Teacher-forced logits and aux loss, prefill logits and caches, the
     aligned caches and 8 decode steps.  Prompt 20 > the smoke window 16,
     so gemma3's and recurrentgemma's ring caches are cut to the window
-    and rotated by 4; recurrent states pass alignment unchanged."""
+    and rotated by 4; recurrent states and whisper's cross keys and
+    values (``xk``/``xv``) pass alignment unchanged; internvl2's 8 patch
+    positions lead every cache and offset the decode positions."""
     rm, params = ref_model(arch)
     pm = port_model(smoke_config(arch), params)
     B, (S, P) = 2, lengths(arch)
     atol, rel = (LOGIT_ATOL, 1e-4) if arch in DENSE else (NEW_LOGIT_ATOL, NEW_CACHE_RTOL)
     toks = tokens(pm.cfg, B, S)
+    extra, npch = extras(pm.cfg, B), pm.cfg.n_patches
 
-    r_full, r_aux = jax.jit(rm.forward)(params, dict(tokens=jnp.asarray(toks)))
-    r_last, r_caches = jax.jit(rm.prefill)(params, dict(tokens=jnp.asarray(toks[:, :P])))
-    r_aligned = r_align(rm, r_caches, P, S, batch=B)
+    r_full, r_aux = jax.jit(rm.forward)(params, jbatch(toks, extra))
+    r_last, r_caches = jax.jit(rm.prefill)(params, jbatch(toks[:, :P], extra))
+    r_aligned = r_align(rm, r_caches, npch + P, npch + S, batch=B)
     decode = jax.jit(rm.decode_step)
     r_steps, cur = [], r_aligned
     for t in range(P, S):
-        lg, cur = decode(params, cur, jnp.asarray(toks[:, t]), jnp.int32(t))
+        lg, cur = decode(params, cur, jnp.asarray(toks[:, t]), jnp.int32(npch + t))
         r_steps.append(np.asarray(lg))
 
     tt = torch.as_tensor(toks, dtype=torch.int64)
     with torch.no_grad():
-        full, aux = pm.forward(dict(tokens=tt))
+        full, aux = pm.forward(tbatch(tt, extra))
         np.testing.assert_allclose(full.numpy(), np.asarray(r_full), atol=atol, rtol=0)
         if arch in MOE:
             assert float(aux) > 0
             np.testing.assert_allclose(float(aux), float(r_aux), rtol=1e-6)
         else:
             assert float(aux) == 0.0 == float(r_aux)
-        last, caches = pm.prefill(dict(tokens=tt[:, :P]))
+        last, caches = pm.prefill(tbatch(tt[:, :P], extra))
         np.testing.assert_allclose(last.numpy(), np.asarray(r_last), atol=atol, rtol=0)
         same_caches(caches, caches_from_reference(pm, jax.tree.map(np.asarray, r_caches)), rel)
-        caches = align_prefill_caches(pm, caches, P, S, batch=B)
+        caches = align_prefill_caches(pm, caches, npch + P, npch + S, batch=B)
         same_caches(caches, caches_from_reference(pm, jax.tree.map(np.asarray, r_aligned)), rel)
         assert all(c["state"].dtype == torch.float32 for c in caches if "state" in c)
+        assert all(c["xk"].shape[1] == pm.cfg.enc_seq for c in caches if "xk" in c)
         for i, t in enumerate(range(P, S)):
-            lg, caches = pm.decode_step(caches, tt[:, t], t)
+            lg, caches = pm.decode_step(caches, tt[:, t], npch + t)
             np.testing.assert_allclose(lg.numpy(), r_steps[i], atol=atol, rtol=0)
 
 
 def decode_against_forward(m, B, S, P):
     tt = torch.as_tensor(tokens(m.cfg, B, S), dtype=torch.int64)
+    extra, npch = extras(m.cfg, B), m.cfg.n_patches
     with torch.no_grad():
-        full, _ = m.forward(dict(tokens=tt))
-        last, caches = m.prefill(dict(tokens=tt[:, :P]))
-        caches = align_prefill_caches(m, caches, P, S, batch=B)
+        full, _ = m.forward(tbatch(tt, extra))
+        last, caches = m.prefill(tbatch(tt[:, :P], extra))
+        caches = align_prefill_caches(m, caches, npch + P, npch + S, batch=B)
         prefill_err = float((last - full[:, P - 1]).abs().max())
         worst = 0.0
         for t in range(P, S):
-            lg, caches = m.decode_step(caches, tt[:, t], t)
+            lg, caches = m.decode_step(caches, tt[:, t], npch + t)
             worst = max(worst, float((lg - full[:, t]).abs().max()))
     return prefill_err, worst
 
@@ -226,34 +255,68 @@ def test_params_from_reference_rejects_a_bad_tree(fault):
     assert all(float(p.abs().max()) == 0.0 for p in m.parameters())
 
 
-@pytest.mark.parametrize("arch,feature", [
-    ("whisper-tiny", "xattn"),
-    ("internvl2-2b", "n_patches"),
-])
-def test_out_of_slice_configs_raise(arch, feature):
-    with pytest.raises(NotImplementedError, match=feature):
-        Model(smoke_config(arch), device="cpu")
-
-
-@pytest.mark.parametrize("arch", RECURRENT + MOE[:1])
+@pytest.mark.parametrize("arch", RECURRENT + MOE[:1] + ENC_DEC_VLM)
 def test_port_caches_continue_the_reference_decode(arch):
     """The port's aligned prefill caches, carried back by
-    ``caches_to_reference``, let the reference's ``decode_step`` go on
-    where the port's would: the same logits for 4 steps."""
+    ``caches_to_reference`` (whisper's ``xk``/``xv`` included), let the
+    reference's ``decode_step`` go on where the port's would: the same
+    logits for 4 steps."""
     rm, params = ref_model(arch)
     pm = port_model(smoke_config(arch), params)
     B, (S, P) = 2, lengths(arch)
     toks = tokens(pm.cfg, B, S)
+    extra, npch = extras(pm.cfg, B), pm.cfg.n_patches
     tt = torch.as_tensor(toks, dtype=torch.int64)
     with torch.no_grad():
-        _, caches = pm.prefill(dict(tokens=tt[:, :P]))
-        caches = align_prefill_caches(pm, caches, P, S, batch=B)
+        _, caches = pm.prefill(tbatch(tt[:, :P], extra))
+        caches = align_prefill_caches(pm, caches, npch + P, npch + S, batch=B)
         r_cur = jax.tree.map(jnp.asarray, caches_to_reference(pm, caches))
         decode = jax.jit(rm.decode_step)
         for t in range(P, P + 4):
-            lg, caches = pm.decode_step(caches, tt[:, t], t)
-            r_lg, r_cur = decode(params, r_cur, jnp.asarray(toks[:, t]), jnp.int32(t))
+            lg, caches = pm.decode_step(caches, tt[:, t], npch + t)
+            r_lg, r_cur = decode(params, r_cur, jnp.asarray(toks[:, t]), jnp.int32(npch + t))
             np.testing.assert_allclose(lg.numpy(), np.asarray(r_lg), atol=NEW_LOGIT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ENC_DEC_VLM)
+def test_encoder_and_patch_leaves_follow_the_reference(arch):
+    """The reference's tree with ``encoder`` (unscanned ``b{i}``, ``norm``,
+    ``pos_embed`` of std 0.02 / sqrt(enc_seq)) or ``patch_proj``; the
+    aligned caches hold the encoder's frames in ``xk``/``xv`` (no
+    ``kv_seq`` axis) and the patch prefix ahead of the prompt."""
+    from repro.configs import smoke_config as r_smoke
+
+    cfg = dataclasses.replace(smoke_config(arch), enc_seq=1500 if smoke_config(arch).enc_seq else 0)
+    r_shapes = RModel(dataclasses.replace(r_smoke(arch), enc_seq=cfg.enc_seq),
+                      RParallelConfig()).param_shapes()
+    r_flat = {".".join(str(k.key) for k in path): shp
+              for path, shp in jax.tree_util.tree_flatten_with_path(
+                  r_shapes, is_leaf=lambda t: isinstance(t, tuple))[0]}
+    m = Model(cfg, ParallelConfig(), device="cpu")
+    assert m.param_shapes() == r_flat
+    assert any(k.startswith("encoder.") if cfg.enc_seq else k == "patch_proj" for k in r_flat)
+    m.init(torch.Generator().manual_seed(0))
+    if cfg.enc_seq:
+        pos = m.encoder["pos_embed"]
+        assert abs(float(pos.std()) * np.sqrt(1500) / 0.02 - 1) < 0.05
+        c = m.cache_shape_for("xattn", 2, 40)
+        assert c["k"].shape == (2, 40, cfg.n_kv_heads, 16) and c["xk"].shape == (
+            2, 1500, cfg.n_kv_heads, 16)
+        assert m.cache_logical("xattn")["xk"] == ("batch", None, "kv_heads", None)
+    else:
+        assert abs(float(m.patch_proj.std()) * np.sqrt(cfg.d_model) - 1) < 0.05
+
+
+@pytest.mark.parametrize("arch,name", [("whisper-tiny", "frames"), ("internvl2-2b", "patches")])
+def test_a_batch_without_frames_or_patches_is_refused(arch, name):
+    """The reference fails with ``KeyError`` inside prefill; the port
+    refuses with a `ValueError` naming the input."""
+    m = port_model(smoke_config(arch))
+    tt = torch.as_tensor(tokens(m.cfg, 2, 8), dtype=torch.int64)
+    with torch.no_grad(), pytest.raises(ValueError, match=f"batch\\['{name}'\\]"):
+        m.prefill(dict(tokens=tt))
+    with torch.no_grad(), pytest.raises(ValueError, match=name):
+        m.forward(dict(tokens=tt))
 
 
 @pytest.mark.parametrize("arch", RECURRENT)

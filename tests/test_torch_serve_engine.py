@@ -59,6 +59,56 @@ def test_greedy_generate_equals_the_reference_and_is_deterministic(arch):
     assert a.dtype == np.int32 and a.shape == (2, 6)
 
 
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
+def test_generate_with_frames_or_patches_equals_the_reference(arch):
+    """``generate(..., extra_batch=)``, the reference's entry for the
+    encoder-decoder and VLM archs: encoder frames or image patches drawn
+    from a seed with numpy (internvl2's 8 patch positions lead the caches
+    and offset decode); the same greedy tokens as the reference's engine,
+    twice."""
+    from repro.configs import smoke_config as r_smoke
+
+    rm = RModel(r_smoke(arch), RParallelConfig(), compute_dtype=jnp.float32,
+                q_chunk=16, kv_chunk=16)
+    params = rm.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, rm.cfg.vocab_size, (2, 24)).astype(np.int32)
+    cfg = rm.cfg
+    name, rows = ("frames", cfg.enc_seq) if cfg.is_encoder_decoder else ("patches", cfg.n_patches)
+    extra = {name: rng.standard_normal((2, rows, cfg.d_model)).astype(np.float32)}
+    want = RServeEngine(rm, params, batch=2, max_seq=64).generate(
+        prompts, max_new=6, extra_batch={name: jnp.asarray(extra[name])})
+
+    pm = Model(smoke_config(arch), ParallelConfig(), compute_dtype=torch.float32,
+               q_chunk=16, kv_chunk=16, device="cpu")
+    params_from_reference(pm, jax.tree.map(np.asarray, params))
+    engine = ServeEngine(pm, batch=2, max_seq=64, device="cpu")
+    a = engine.generate(prompts, max_new=6, extra_batch=extra)
+    b = engine.generate(prompts, max_new=6, extra_batch={name: torch.as_tensor(extra[name])})
+    np.testing.assert_array_equal(a, want)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch,name", [("whisper-tiny", "frames"), ("internvl2-2b", "patches")])
+def test_serve_without_frames_or_patches_is_refused(arch, name):
+    """``serve()`` (and so ``llm``) passes prompts only, as the
+    reference's, whose prefill then fails with ``KeyError``; the port
+    refuses up front with a `ValueError` naming the input, and
+    ``generate`` without ``extra_batch`` does too."""
+    eng = ServeEngine(small_model(arch), batch=2, max_seq=32, device="cpu")
+    calls = []
+    eng.model.prefill = lambda *a: calls.append(a)
+    reqs = [Request(uid=0, prompt=np.array([1, 2, 3], np.int32), max_new=2)]
+    with pytest.raises(ValueError, match=f"reads {name} besides the prompts"):
+        eng.serve(reqs, prompt_pad=8)
+    assert calls == []
+    del eng.model.prefill
+    with pytest.raises(ValueError, match=name):
+        eng.generate(np.ones((2, 8), np.int32), max_new=2)
+    with pytest.raises(ValueError, match=name):
+        serve_cli.main(["llm", "--device", "cpu", "--preset", "smoke", "--arch", arch])
+
+
 def test_sampling_draws_from_the_seeded_generator():
     """temperature > 0: the same seed gives the same tokens, never a
     padded vocab row."""
