@@ -136,12 +136,32 @@ and then runs these phases, failing (non-zero exit) on any error:
    random weights make large, and never tighter than 1e-3 of its scale;
    the updated params where both grads agree in sign).  Phase 10's
    tolerances; neither K1 nor K2 is launched.
+13. The mesh explorer and its dry-run layer (``core.mesh_explorer``,
+   ``launch.dryrun``): every cell is the step traced on meta DTensors over
+   a fake 512-rank process group (the reference's 512 placeholder host
+   devices), its per-device costs read off the trace: (a)
+   ``explore_mesh`` of minicpm-2b x train_4k at published size over the
+   four default topologies (16x16, 32x8, 64x4 and 2x16x16 on the 512
+   ranks) and the six default recipes, the 24 cells traced by 8 worker
+   processes, with the energy constants' corners and the selection on the
+   card: every variant's winner and the pick must equal the same call
+   selecting on the CPU; each cell's trace time, per-device costs and
+   HBM are printed; (b) ``explore_mesh_suite`` over whisper-tiny x
+   decode_32k and deepseek-moe-16b x decode_32k (the base recipe, the
+   four topologies), its global pick, card against CPU; (c) the dry-run's
+   memory estimate against the card: ``run_cell`` of whisper-tiny x
+   decode_32k on a (1, 1) mesh (bf16 params, 27 GB of caches at batch
+   128 x 32,768 positions), then the same ``decode_step`` for real on the
+   card: the estimate's argument bytes must equal the real arguments'
+   bytes, and the card's allocation for them within the caching
+   allocator's rounding per tensor; its HBM must not be below them; the
+   ratio of the estimate to ``max_memory_allocated`` is printed.  Neither K1 nor K2 is launched.
 
 Kernel times are device times of back-to-back launches; ``bound_ms``
 counts each byte a call must move once, over the card's HBM rate.
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
-build seconds, per-phase times (the launches of phases 5-12 on lines of
+build seconds, per-phase times (the launches of phases 5-13 on lines of
 their own), the script's wall time, a ``{"kernels": [...]}`` JSON line
 (launch counts of phase 2) and, last, ``{"ok": true, "device": {...}}``.
 It exits non-zero without a CUDA device and when ``src/repro_torch`` is
@@ -2243,6 +2263,157 @@ def phase_llm12(dev, rng):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the mesh explorer and its dry-run layer
+# ---------------------------------------------------------------------------
+
+#: (a) the CLI's default shape over the default grid, at published size
+MESH_ARCH, MESH_SHAPE = "minicpm-2b", "train_4k"
+#: (b) the reference's own dry-run test cell and an MoE arch, decode
+MESH_SUITE = (("whisper-tiny", "decode_32k"), ("deepseek-moe-16b", "decode_32k"))
+#: processes tracing the cells (the trace is single-threaded host work)
+MESH_WORKERS = 8
+#: PyTorch's CUDA caching allocator: the largest small-pool request and
+#: the rounding of a large request's segment
+ALLOC_SMALL, ALLOC_ROUND_LARGE = 1 << 20, 2 << 20
+
+
+def mesh_records(out_dir: str, arch: str, shape: str) -> list[dict]:
+    return [json.loads(f.read_text())
+            for f in sorted(Path(out_dir).glob(f"{arch}__{shape}__*.json"))]
+
+
+def print_cells(recs: list[dict]) -> None:
+    for r in recs:
+        rl = r["roofline"]
+        print(f"  {r['tag']:32s} trace {r['lower_s']:6.1f} s  flops/dev {rl['flops']:.4e}  "
+              f"hbm B/dev {rl['hbm_bytes']:.4e}  link B/dev {rl['link_bytes']:.4e} "
+              f"{json.dumps(rl['coll_breakdown'])}  HBM {r['hbm_per_device_gb']:.3f} GB  "
+              f"-> {rl['bottleneck']}")
+
+
+def mesh_memory(dev) -> None:
+    """(c): the dry-run's memory record of one decode step on a (1, 1)
+    mesh against the same step on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.model import Model
+
+    arch, shape = MESH_SUITE[0]
+    s = SHAPES[shape]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mem_") as tmp:
+        rec = run_cell(arch, shape, False, tmp, mesh_shape=(1, 1))
+    mem = rec["memory"]
+    free()
+    base = torch.cuda.memory_allocated()
+    model = Model(get_config(arch), device=dev, param_dtype=torch.bfloat16)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    caches = model.init_cache(s.global_batch, s.seq_len)
+    token = torch.randint(0, model.cfg.vocab_size, (s.global_batch,), dtype=torch.int32,
+                          device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    real_args = torch.cuda.memory_allocated() - base
+    sizes = [t.nbytes for t in (*model.parameters(), *(t for c in caches for t in c.values()),
+                                token)]
+    est_args = mem["argument_size_in_bytes"]
+    check(sum(sizes) == est_args,
+          f"mesh (c): argument bytes {est_args} estimated, {sum(sizes)} on the card")
+    # the caching allocator's rounding: 512 B blocks, and a large tensor's
+    # block may keep the rest (under 1 MiB) of its 2 MiB-rounded segment
+    slack = sum(512 if n <= ALLOC_SMALL else ALLOC_ROUND_LARGE for n in sizes)
+    check(abs(real_args - est_args) <= slack,
+          f"mesh (c): {real_args} B allocated for {est_args} B of arguments "
+          f"({len(sizes)} tensors, rounding slack {slack} B)")
+    n_args = len(sizes)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = model.decode_step(caches, token, s.seq_len - 1)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    check(bool(torch.isfinite(logits.float()).all()), "mesh (c): non-finite decode logits")
+    peak = torch.cuda.max_memory_allocated()
+    est = rec["hbm_per_device_gb"] * 2**30
+    check(est >= est_args, f"mesh (c): estimate {est} below the arguments {est_args}")
+    print(f"mesh (c) {arch} x {shape} on a (1, 1) mesh: trace {rec['lower_s']} s; estimate "
+          f"arguments {est_args} B (the card's tensors {sum(sizes)} B, allocated "
+          f"{real_args} B over {n_args} tensors), temp "
+          f"{mem['temp_size_in_bytes']} B, donated {mem['alias_size_in_bytes']} B, HBM "
+          f"{rec['hbm_per_device_gb']} GB; the real decode step: {step_s:.3f} s, "
+          f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB); estimate / card "
+          f"{est / peak:.4f}")
+    del model, caches, token, logits
+    free()
+
+
+def phase_mesh(dev):
+    """The mesh explorer and its dry-run layer: (a) `explore_mesh` at
+    published size over the default grid, selection on the card against
+    the CPU; (b) `explore_mesh_suite` over two decode workloads; (c) the
+    dry-run's memory record against a real decode step.  Neither K1 nor
+    K2 is launched."""
+    import logging
+
+    from repro_torch.core import mesh_explorer as MX
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SHAPES
+
+    # DTensor warns at every multi-step redistribute; the costs hold them
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    t_phase = time.time()
+    zero_launches()
+    corners = MX.constant_corners()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        t = time.time()
+        res = MX.explore_mesh(MESH_ARCH, MESH_SHAPE, out_dir=f"{tmp}/a", constant_sweep=corners,
+                              device=dev, workers=MESH_WORKERS)
+        sweep_s = time.time() - t
+        recs = mesh_records(f"{tmp}/a", MESH_ARCH, MESH_SHAPE)
+        grid = len(MX.DEFAULT_TOPOLOGIES) * len(MX.DEFAULT_RECIPES)
+        check(len(res["sweep"]) == len(recs) == grid,
+              f"mesh (a): {len(res['sweep'])} cells swept, {len(recs)} records, not {grid}")
+        mf = model_flops(get_config(MESH_ARCH), SHAPES[MESH_SHAPE])
+        for r in recs:
+            check(r["roofline"]["model_flops_total"] == mf and r["n_chips"] in (256, 512),
+                  f"mesh (a): {r['tag']} is not {MESH_ARCH} at published size")
+            check(r["roofline"]["flops"] > 0 and r["n_collectives"] > 0,
+                  f"mesh (a): {r['tag']} traced no work or no collective")
+        print(f"mesh (a) explore_mesh {MESH_ARCH} x {MESH_SHAPE}: {grid} cells in "
+              f"{sweep_s:.3f} s on {MESH_WORKERS} workers (trace s summed "
+              f"{sum(r['lower_s'] for r in recs):.1f})")
+        print_cells(recs)
+        cpu = MX.explore_mesh(MESH_ARCH, MESH_SHAPE, out_dir=f"{tmp}/a", constant_sweep=corners,
+                              device="cpu")
+        check(res == cpu, "mesh (a): the card's selection differs from the CPU's")
+        print(f"mesh (a) pick {json.dumps(res['best'])}; variant winners "
+              f"{json.dumps(res['variation']['winners'])}, best_yield "
+              f"{res['variation']['best_yield']} (card == CPU)")
+
+        t = time.time()
+        kw = dict(recipes=(MX.StepRecipe("base"),), out_dir=f"{tmp}/b", constant_sweep=corners)
+        suite = MX.explore_mesh_suite(list(MESH_SUITE), device=dev, workers=MESH_WORKERS, **kw)
+        suite_s = time.time() - t
+        for arch, shape in MESH_SUITE:
+            recs = mesh_records(f"{tmp}/b", arch, shape)
+            check(len(recs) == len(MX.DEFAULT_TOPOLOGIES), f"mesh (b): {arch} has {len(recs)} cells")
+            print(f"mesh (b) {arch} x {shape}: pick "
+                  f"{json.dumps(suite['workloads'][f'{arch}/{shape}']['best'])}")
+            print_cells(recs)
+        check(suite == MX.explore_mesh_suite(list(MESH_SUITE), device="cpu", **kw),
+              "mesh (b): the card's suite selection differs from the CPU's")
+        print(f"mesh (b) explore_mesh_suite in {suite_s:.3f} s: global pick "
+              f"{json.dumps(suite['best'])} (card == CPU)")
+    mesh_memory(dev)
+    launched = k1_k2_idle("mesh explorer")
+    wall = time.time() - t_phase
+    print(f"mesh phase: wall {wall:.3f} s; K1/K2 launches {json.dumps(launched)}")
+    return wall
+
+
 KERNELS = {
     "eval_mega": (
         "aig_sim.eval_mega",
@@ -2291,7 +2462,7 @@ def main() -> int:
     suite, cha, res, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
     mc, fused = phase_sweep(dev, suite, cha)
     times.update(phase_k2(dev, netlists, vectors))
-    # Phases 5-12 run after the kernel line's launch counts were taken
+    # Phases 5-13 run after the kernel line's launch counts were taken
     # (``launches`` is phase 2's); each phase sets the counts to 0 first.
     served = {n: suite[n] for n in SERVICE_CIRCUITS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2306,10 +2477,12 @@ def main() -> int:
     llm_s = phase_llm(dev, rng)
     llm11_s = phase_llm11(dev, rng)
     llm12_s = phase_llm12(dev, rng)
-    print(f"phases 5-12 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
+    mesh_s = phase_mesh(dev)
+    print(f"phases 5-13 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
           f"CLI {cli_s:.3f} s, chaos {chaos_s:.3f} s, journal overhead {overhead_s:.3f} s, "
           f"system {system_s:.3f} s, LM serving {llm_s:.3f} s, MoE/recurrent LM serving "
-          f"{llm11_s:.3f} s, enc-dec/VLM serving and training {llm12_s:.3f} s")
+          f"{llm11_s:.3f} s, enc-dec/VLM serving and training {llm12_s:.3f} s, mesh "
+          f"explorer {mesh_s:.3f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

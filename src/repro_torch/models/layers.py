@@ -19,6 +19,7 @@ the mask value everywhere.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Mapping, NamedTuple
 
@@ -37,10 +38,12 @@ NEG = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """A leaf's shape, init and std multiplier; the reference's logical
-    (sharding) axes are not kept."""
+    """A leaf's shape, logical (sharding) axes, init and std multiplier.
+    ``logical`` names each dim's axis for `parallel.sharding.spec_for`
+    (``None`` for a dim that never shards)."""
 
     shape: tuple[int, ...]
+    logical: tuple[str | None, ...]
     init: str = "normal"  # normal | zeros | ones
     scale: float = 1.0  # stddev multiplier on fan-in init
 
@@ -68,8 +71,16 @@ def is_spec(x) -> bool:
 def stack_specs(specs, n: int):
     """Prepend a scan ("layers") dim to every leaf spec."""
     if is_spec(specs):
-        return dataclasses.replace(specs, shape=(n, *specs.shape))
+        return dataclasses.replace(specs, shape=(n, *specs.shape),
+                                   logical=("layers", *specs.logical))
     return {k: stack_specs(v, n) for k, v in specs.items()}
+
+
+def logical_tree(specs):
+    """The spec tree's logical axes, keyed like it."""
+    if is_spec(specs):
+        return specs.logical
+    return {k: logical_tree(v) for k, v in specs.items()}
 
 
 def tree_leaves(tree, prefix: str = ""):
@@ -86,25 +97,88 @@ class ParamTree(nn.Module):
     (no grad until a trainer asks, `Model.train_params`), sub-dicts are
     child `ParamTree` modules, and
     ``p[name]`` / ``name in p`` address both.  Leaves are allocated (as
-    zeros) in ``dtype``, except those whose dotted path from the root is in
-    ``fp32``, which stay fp32."""
+    zeros, or by ``place(spec, dtype)``, e.g. sharded on a mesh) in
+    ``dtype``, except those whose dotted path from the root is in ``fp32``,
+    which stay fp32."""
 
     def __init__(self, specs: Mapping, device: torch.device,
-                 dtype: torch.dtype = torch.float32, fp32=frozenset(), prefix: str = ""):
+                 dtype: torch.dtype = torch.float32, fp32=frozenset(), prefix: str = "",
+                 place: "Callable[[ParamSpec, torch.dtype], torch.Tensor] | None" = None):
         super().__init__()
         for k, s in specs.items():
             if is_spec(s):
                 dt = torch.float32 if prefix + k in fp32 else dtype
-                self.register_parameter(k, nn.Parameter(
-                    torch.zeros(s.shape, dtype=dt, device=device), requires_grad=False))
+                t = (place(s, dt) if place is not None
+                     else torch.zeros(s.shape, dtype=dt, device=device))
+                self.register_parameter(k, nn.Parameter(t, requires_grad=False))
             else:
-                self.add_module(k, ParamTree(s, device, dtype, fp32, f"{prefix}{k}."))
+                self.add_module(k, ParamTree(s, device, dtype, fp32, f"{prefix}{k}.", place))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+# ---------------------------------------------------------------------------
+# Reshapes on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _view_groups(src, dst) -> list[tuple[list[int], list[int]]]:
+    """Pair up the dims of a view ``src -> dst``: runs of source dims and
+    of destination dims with equal products."""
+    groups, i, j = [], 0, 0
+    while i < len(src) or j < len(dst):
+        si, dj = [], []
+        ps = pd = 1
+        while True:
+            if ps <= pd and i < len(src) and (not si or ps < pd or src[i] == 1):
+                ps *= src[i]
+                si.append(i)
+                i += 1
+            elif j < len(dst) and (not dj or pd < ps or dst[j] == 1):
+                pd *= dst[j]
+                dj.append(j)
+                j += 1
+            else:
+                break
+            if ps == pd and si and dj:
+                break
+        groups.append((si, dj))
+    return groups
+
+
+def reshape(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t.reshape(shape)``.  A DTensor is first gathered on every sharded
+    dim the view cannot keep sharded -- one that is not the outer dim of
+    the dims it merges with, is sharded unevenly, or whose outer output dim
+    its shard count does not divide -- since DTensor refuses such a view
+    where GSPMD reshards."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t.reshape(*shape)
+    src = tuple(t.shape)
+    shape = torch.empty(src, device="meta").reshape(*shape).shape
+    mesh = t.device_mesh
+    count = {}
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard):
+            count[pl.dim] = count.get(pl.dim, 1) * mesh.size(i)
+    keep = set()
+    for si, dj in _view_groups(src, tuple(shape)):
+        lead = [d for d in si if src[d] > 1][:1]
+        for d in si:
+            if (d in count and d in lead and dj and src[d] % count[d] == 0
+                    and shape[dj[0]] % count[d] == 0):
+                keep.add(d)
+    want = tuple(Replicate() if isinstance(pl, Shard) and pl.dim not in keep else pl
+                 for pl in t.placements)
+    if want != tuple(t.placements):
+        t = t.redistribute(mesh, want)
+    return t.contiguous().view(shape)  # torch 2.11's DTensor views strictly
 
 
 # ---------------------------------------------------------------------------
@@ -151,21 +225,21 @@ def attention_specs(cfg) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     s = dict(
-        wq=ParamSpec((d, h * hd)),
-        wk=ParamSpec((d, kv * hd)),
-        wv=ParamSpec((d, kv * hd)),
-        wo=ParamSpec((h * hd, d)),
+        wq=ParamSpec((d, h * hd), ("embed", "qkv")),
+        wk=ParamSpec((d, kv * hd), ("embed", "qkv")),
+        wv=ParamSpec((d, kv * hd), ("embed", "qkv")),
+        wo=ParamSpec((h * hd, d), ("qkv", "embed")),
     )
     if cfg.qkv_bias:
         s.update(
-            bq=ParamSpec((h * hd,), init="zeros"),
-            bk=ParamSpec((kv * hd,), init="zeros"),
-            bv=ParamSpec((kv * hd,), init="zeros"),
+            bq=ParamSpec((h * hd,), ("qkv",), init="zeros"),
+            bk=ParamSpec((kv * hd,), ("qkv",), init="zeros"),
+            bv=ParamSpec((kv * hd,), ("qkv",), init="zeros"),
         )
     if cfg.qk_norm:
         s.update(
-            q_norm=ParamSpec((hd,), init="zeros"),
-            k_norm=ParamSpec((hd,), init="zeros"),
+            q_norm=ParamSpec((hd,), (None,), init="zeros"),
+            k_norm=ParamSpec((hd,), (None,), init="zeros"),
         )
     return s
 
@@ -180,9 +254,9 @@ def _project_qkv(p, x, cfg, positions, theta):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = reshape(q, b, s, cfg.n_heads, hd)
+    k = reshape(k, b, s, cfg.n_kv_heads, hd)
+    v = reshape(v, b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -215,6 +289,33 @@ def _pick_chunk(s: int, target: int) -> int:
                 best = max(best, hi)
         d += 1
     return best if best >= max(8, target // 8) else s
+
+
+#: q, k and v of an attention on a mesh: batch over data, heads over model
+#: where they divide, the sequence whole (gathered ONCE, before the loops)
+HOIST = ("batch", None, "act_heads", None)
+
+
+def _attend(fn, q, k, v, constrain_fn=None, hoist_kv: bool = True):
+    """``fn(q, k, v)``, each (B, S, H, D) and the output (B, Sq, H, D).  On
+    a mesh (``constrain_fn``) q -- and k, v with ``hoist_kv`` -- are
+    placed by `HOIST`; where the three then sit alike, ``fn`` runs on each
+    device's shard (shard_map-style: attention is batch- and
+    head-parallel), since DTensor would flatten two sharded dims into its
+    matmuls as a strided shard, which torch 2.13's plans slowly and 2.11's
+    cannot do at all.  Otherwise ``fn`` runs on the DTensors as they
+    are."""
+    if constrain_fn is None:
+        return fn(q, k, v)
+    q = constrain_fn(q, HOIST)
+    if hoist_kv:
+        k, v = constrain_fn(k, HOIST), constrain_fn(v, HOIST)
+    if not (q.placements == k.placements == v.placements):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = list(q.placements)  # a list: one output (a tuple would mean one per output)
+    return local_map(fn, out_placements=pl, in_placements=(pl,) * 3)(q, k, v)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -280,32 +381,35 @@ def chunked_attention(
 
 
 def attention_train(p, x, cfg, kind: str, theta: float, q_chunk: int = 1024,
-                    kv_chunk: int = 1024):
+                    kv_chunk: int = 1024, constrain_fn=None):
     """Full-sequence (forward/prefill) attention for one layer.
 
     Returns ``(out, (k, v))`` with k, v un-repeated (B, S, KV, D): the
     prefill cache (the reference repeats and then strides back to the same
-    values)."""
+    values).  ``constrain_fn`` (on a mesh) hoists the sequence-parallel
+    gather of q and the repeated k, v to one redistribute each before the
+    chunk loop, as the reference does (`_attend`)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     window = cfg.window if kind == "local" else 0
-    out = chunked_attention(
-        q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), causal=True, window=window,
-        q_chunk=q_chunk, kv_chunk=kv_chunk,
-    )
-    out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim).to(x.dtype)
+    out = _attend(functools.partial(chunked_attention, causal=True, window=window,
+                                    q_chunk=q_chunk, kv_chunk=kv_chunk),
+                  q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), constrain_fn)
+    out = reshape(out, b, s, cfg.n_heads * cfg.resolved_head_dim).to(x.dtype)
     return out @ p["wo"].to(x.dtype), (k, v)
 
 
-def attention_decode(p, x, cfg, kind: str, theta: float, cache: dict, pos: int):
+def attention_decode(p, x, cfg, kind: str, theta: float, cache: dict, pos: int,
+                     constrain_fn=None):
     """Single-token decode against a KV cache, updated in place.
 
     cache: dict(k=(B, S_cache, KV, D), v=...);  pos: the current index, a
     host int (one for the whole batch), so nothing here syncs.  Local
     layers use a ring cache of size ``window`` -- positions are mapped
-    modulo the ring."""
+    modulo the ring.  On a mesh (``constrain_fn``) q is placed as the
+    cache's heads are (`_attend`)."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     dev = x.device
@@ -320,23 +424,27 @@ def attention_decode(p, x, cfg, kind: str, theta: float, cache: dict, pos: int):
     v[:, slot] = v_new[:, 0].to(v.dtype)
 
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    kk = _repeat_kv(k, n_rep)
-    vv = _repeat_kv(v, n_rep)
     scale = 1.0 / math.sqrt(hd)
-    s_ = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), kk.float())
-    kv_idx = torch.arange(s_cache, device=dev)
-    if is_ring:
-        # entry at slot i holds absolute position: valid if within window of pos
-        age = torch.remainder(pos - kv_idx, s_cache)
-        valid = age < min(pos + 1, cfg.window)
-    else:
-        valid = kv_idx <= pos
-        if kind == "local" and cfg.window:
-            valid &= kv_idx > pos - cfg.window
-    s_ = torch.where(valid[None, None, None, :], s_, NEG)
-    prob = torch.softmax(s_, dim=-1).to(vv.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", prob, vv)
-    out = out.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
+
+    def attend(q, k, v):
+        kk = _repeat_kv(k, n_rep)
+        vv = _repeat_kv(v, n_rep)
+        s_ = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), kk.float())
+        kv_idx = torch.arange(s_cache, device=q.device)
+        if is_ring:
+            # entry at slot i holds absolute position: valid if within window of pos
+            age = torch.remainder(pos - kv_idx, s_cache)
+            valid = age < min(pos + 1, cfg.window)
+        else:
+            valid = kv_idx <= pos
+            if kind == "local" and cfg.window:
+                valid &= kv_idx > pos - cfg.window
+        s_ = torch.where(valid[None, None, None, :], s_, NEG)
+        prob = torch.softmax(s_, dim=-1).to(vv.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", prob, vv)
+
+    out = _attend(attend, q, k, v, constrain_fn, hoist_kv=False)
+    out = reshape(out, b, 1, cfg.n_heads * hd).to(x.dtype)
     return out @ p["wo"].to(x.dtype), cache
 
 
@@ -344,14 +452,15 @@ def cross_attention_specs(cfg) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     return dict(
-        wq=ParamSpec((d, h * hd)),
-        wk=ParamSpec((d, kv * hd)),
-        wv=ParamSpec((d, kv * hd)),
-        wo=ParamSpec((h * hd, d)),
+        wq=ParamSpec((d, h * hd), ("embed", "qkv")),
+        wk=ParamSpec((d, kv * hd), ("embed", "qkv")),
+        wv=ParamSpec((d, kv * hd), ("embed", "qkv")),
+        wo=ParamSpec((h * hd, d), ("qkv", "embed")),
     )
 
 
-def cross_attention(p, x, enc_kv, cfg, q_chunk: int = 1024, kv_chunk: int = 1024):
+def cross_attention(p, x, enc_kv, cfg, q_chunk: int = 1024, kv_chunk: int = 1024,
+                    constrain_fn=None):
     """Decoder cross-attention; ``enc_kv = (k, v)`` precomputed from the
     encoder output (`encode_kv`), un-repeated.  The chunked online-softmax
     path, so the scores never materialize; the chunks are the reference's
@@ -359,12 +468,13 @@ def cross_attention(p, x, enc_kv, cfg, q_chunk: int = 1024, kv_chunk: int = 1024
     750."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
+    q = reshape(x @ p["wq"].to(x.dtype), b, s, cfg.n_heads, hd)
     k, v = enc_kv
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), causal=False,
-                            cross=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    out = out.reshape(b, s, cfg.n_heads * hd)
+    out = _attend(functools.partial(chunked_attention, causal=False, cross=True,
+                                    q_chunk=q_chunk, kv_chunk=kv_chunk),
+                  q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), constrain_fn)
+    out = reshape(out, b, s, cfg.n_heads * hd)
     return out.to(x.dtype) @ p["wo"].to(x.dtype)
 
 
@@ -373,8 +483,8 @@ def encode_kv(p, enc_out, cfg):
     S_enc, KV, D) each."""
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    k = reshape(enc_out @ p["wk"].to(enc_out.dtype), b, s, cfg.n_kv_heads, hd)
+    v = reshape(enc_out @ p["wv"].to(enc_out.dtype), b, s, cfg.n_kv_heads, hd)
     return k, v
 
 
@@ -386,9 +496,9 @@ def encode_kv(p, enc_out, cfg):
 def mlp_specs(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return dict(
-        w_gate=ParamSpec((d, f)),
-        w_up=ParamSpec((d, f)),
-        w_down=ParamSpec((f, d)),
+        w_gate=ParamSpec((d, f), ("embed", "mlp")),
+        w_up=ParamSpec((d, f), ("embed", "mlp")),
+        w_down=ParamSpec((f, d), ("mlp", "embed")),
     )
 
 
@@ -406,17 +516,17 @@ def mlp(p, x, cfg):
 def moe_specs(cfg) -> dict:
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     s = dict(
-        router=ParamSpec((d, e)),
-        we_gate=ParamSpec((e, d, f)),
-        we_up=ParamSpec((e, d, f)),
-        we_down=ParamSpec((e, f, d)),
+        router=ParamSpec((d, e), ("embed", "experts")),
+        we_gate=ParamSpec((e, d, f), ("experts", "embed", "expert_mlp")),
+        we_up=ParamSpec((e, d, f), ("experts", "embed", "expert_mlp")),
+        we_down=ParamSpec((e, f, d), ("experts", "expert_mlp", "embed")),
     )
     if cfg.n_shared_experts:
         fs = cfg.moe_d_ff * cfg.n_shared_experts
         s.update(
-            ws_gate=ParamSpec((d, fs)),
-            ws_up=ParamSpec((d, fs)),
-            ws_down=ParamSpec((fs, d)),
+            ws_gate=ParamSpec((d, fs), ("embed", "mlp")),
+            ws_up=ParamSpec((d, fs), ("embed", "mlp")),
+            ws_down=ParamSpec((fs, d), ("mlp", "embed")),
         )
     return s
 
@@ -453,11 +563,13 @@ def moe_route(p, xt: torch.Tensor, cfg) -> Routing:
 
     # aux load-balancing loss (Switch-style), group-averaged
     me = probs.mean((0, 1))
-    # counts as float adds of 1.0: exact in any order, and no host sync
-    # (bincount sizes its output from the data's max on the card)
+    # counts as float sums of ones: exact in any order, and no host sync
+    # (bincount sizes its output from the data's max on the card); a
+    # compare-and-sum, which DTensor shards like any elementwise op and
+    # reduction (not an index_add into a plain buffer)
     flat_idx = expert_idx.reshape(-1)
-    ce = torch.zeros(e, dtype=torch.float32, device=xt.device).index_add_(
-        0, flat_idx, torch.ones(flat_idx.shape, dtype=torch.float32, device=xt.device))
+    hits = flat_idx[:, None] == torch.arange(e, device=xt.device)
+    ce = hits.sum(0, dtype=torch.float32)
     ce = ce / (g * ng * k)
     aux_loss = e * torch.sum(me * ce)
 
@@ -467,15 +579,19 @@ def moe_route(p, xt: torch.Tensor, cfg) -> Routing:
     flat_expert = expert_idx.reshape(g, ng * k)
     order = torch.argsort(flat_expert, dim=-1, stable=True)
     se = flat_expert.gather(1, order)
-    run_start = torch.searchsorted(
-        se, torch.arange(e, device=xt.device).expand(g, e).contiguous(), side="left")
+    # each expert's first sorted position: the exclusive prefix sum of the
+    # group's expert counts (``searchsorted(se, arange(e))``, which DTensor
+    # cannot shard)
+    counts = torch.zeros((g, e), dtype=se.dtype, device=xt.device).scatter_add(
+        1, se, torch.ones_like(se))
+    run_start = counts.cumsum(1) - counts
     pos_in_e = torch.arange(ng * k, device=xt.device) - run_start.gather(1, se)
     keep = pos_in_e < cap
     dst = se * cap + torch.where(keep, pos_in_e, 0)
     return Routing(probs, expert_idx, gate_vals, aux_loss, cap, order, keep, dst)
 
 
-def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1):
+def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1, constrain_fn=None):
     """Fine-grained MoE with grouped sort-based dispatch (GShard groups).
 
     Tokens are split into ``n_groups`` groups (the reference's data
@@ -485,7 +601,10 @@ def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1):
     dropped.  The combine sums each token's kept contributions in
     ascending expert order, the order of the reference's sorted
     scatter-add, with plain adds (no atomics), so it is deterministic on
-    the card.  Returns ``(out, aux_loss)``.
+    the card.  ``constrain_fn`` (on a mesh) places the dispatch buffer and
+    the experts' outputs groups over data, experts over model (the
+    reference's expert parallelism; the reference constrains them in its
+    train blocks, the port in every mode).  Returns ``(out, aux_loss)``.
     """
     b, s, d = x.shape
     n = b * s
@@ -502,17 +621,32 @@ def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1):
     keep = r.keep[..., None]
     gathered = torch.where(keep, xt.gather(1, st[..., None].expand(-1, -1, d)), 0)
     # kept slots are unique; a dropped assignment adds exact zeros
-    buf = torch.zeros((g, e * cap, d), dtype=xt.dtype, device=xt.device).scatter_add_(
+    buf = torch.zeros((g, e * cap, d), dtype=xt.dtype, device=xt.device).scatter_add(
         1, r.dst[..., None].expand(-1, -1, d), gathered).reshape(g, e, cap, d)
+    def run_experts(buf, w_gate, w_up, w_down):
+        h = a(torch.einsum("gecd,edf->gecf", buf, w_gate)) * torch.einsum(
+            "gecd,edf->gecf", buf, w_up)
+        return torch.einsum("gecf,efd->gecd", h, w_down)
 
-    h = a(torch.einsum("gecd,edf->gecf", buf, p["we_gate"].to(buf.dtype))) * torch.einsum(
-        "gecd,edf->gecf", buf, p["we_up"].to(buf.dtype))
-    y = torch.einsum("gecf,efd->gecd", h, p["we_down"].to(buf.dtype)).reshape(g, e * cap, d)
+    ws = [p[n].to(buf.dtype) for n in ("we_gate", "we_up", "we_down")]
+    if constrain_fn is None:
+        y = run_experts(buf, *ws)
+    else:
+        # each device runs its groups through its experts (shard_map-style),
+        # the expert weights gathered whole over data (FSDP), as DTensor's
+        # einsums would flatten the two sharded dims into a strided shard
+        from torch.distributed.tensor.experimental import local_map
+
+        buf = constrain_fn(buf, ("batch", "act_experts", None, None))
+        ws = [constrain_fn(w, ("act_experts", None, None)) for w in ws]
+        pl = [list(t.placements) for t in (buf, *ws)]
+        y = local_map(run_experts, out_placements=pl[0], in_placements=tuple(pl))(buf, *ws)
+    y = reshape(y, g, e * cap, d)
 
     yd = y.gather(1, r.dst[..., None].expand(-1, -1, d))  # (G, Ng*k, D)
     contrib = torch.where(keep, yd * sg[..., None].to(y.dtype), 0)
     # each token's k sorted positions, in ascending expert order
-    inv = torch.empty_like(r.order).scatter_(
+    inv = torch.zeros_like(r.order).scatter(
         1, r.order, torch.arange(ng * k, device=x.device).expand(g, -1).contiguous())
     pos = inv.reshape(g, ng, k).gather(2, torch.argsort(r.expert_idx, dim=-1))
     per_tok = contrib.gather(1, pos.reshape(g, ng * k, 1).expand(-1, -1, d)).reshape(g, ng, k, d)
@@ -533,9 +667,9 @@ def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1):
 
 def embed_specs(cfg) -> dict:
     v = cfg.padded_vocab
-    s = dict(tok=ParamSpec((v, cfg.d_model)))
+    s = dict(tok=ParamSpec((v, cfg.d_model), ("vocab", "embed")))
     if not cfg.tie_embeddings:
-        s["unembed"] = ParamSpec((cfg.d_model, v))
+        s["unembed"] = ParamSpec((cfg.d_model, v), ("embed", "vocab"))
     return s
 
 

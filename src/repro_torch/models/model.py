@@ -15,9 +15,16 @@ included, `ROADMAP.md` §3) and `load_tree` unstacks it into the layers,
 so the port computes the function the reference computes on the same
 tree; `to_tree` / `from_tree` carry a flat dict keyed like
 ``named_parameters`` (params, grads, optimizer moments) to and from that
-layout.  One card, no sharding: the reference's mesh, rules and
-constraints are not ported, and the MoE dispatch runs as one group (the
-reference's ``_moe_groups()`` without a mesh).
+layout.
+
+On a mesh (``mesh=`` a `DeviceMesh`, ``rules=`` the logical-axis table of
+`parallel.sharding`) every param is a DTensor placed by its spec's logical
+axes, the activations are redistributed at the reference's sharding
+constraints, and the MoE dispatch runs one group per data shard; the
+dry-run (`launch.dryrun`) traces the steps this way on ``meta`` over a fake
+process group, under ``implicit_replication`` (the plain tensors the model
+makes -- positions, masks, zero buffers -- join as replicated).  Without a
+mesh nothing of this runs: one device, one MoE group.
 
 Caches are one dict per layer, updated in place by `decode_step`:
 ``{k, v}`` for attention, ``{k, v, xk, xv}`` for ``xattn`` (the encoder's
@@ -36,12 +43,19 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
+from ..parallel import sharding as sh
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig, ParallelConfig
 
 IN_SLICE_KINDS = ("attn", "local", "ssm", "rglru", "xattn", "enc")
 RECURRENT_KINDS = ("ssm", "rglru")
+
+#: the residual stream between blocks: batch over data, sequence over model
+#: where it divides (the reference's sequence-parallel constraint)
+SEQ_SHARD = ("batch", "act_seq_shard", None)
+#: a block's normed input on a mesh: the sequence whole on every device
+GATHERED = ("batch", None, None)
 
 #: Leaves the ops read in fp32 without casting them to the activations'
 #: dtype (``ssm.py``): they stay fp32 in a model cast to bf16, where
@@ -74,7 +88,7 @@ def _check_in_slice(cfg: ModelConfig) -> None:
 def block_specs(cfg: ModelConfig, kind: str, layer_idx: int = 10**9) -> dict:
     """A layer's params by block kind; an attention layer of an MoE model
     has ``moe`` in place of ``mlp`` from ``first_dense_layers`` on."""
-    norm = lambda: L.ParamSpec((cfg.d_model,), init="zeros")
+    norm = lambda: L.ParamSpec((cfg.d_model,), (None,), init="zeros")
     if kind in ("attn", "local"):
         s = dict(norm1=norm(), attn=L.attention_specs(cfg), norm2=norm())
         if cfg.is_moe and layer_idx >= cfg.first_dense_layers:
@@ -101,8 +115,8 @@ def encoder_specs(cfg: ModelConfig) -> dict:
     """The encoder's ``b{i}`` blocks (unscanned), final norm and learned
     positions over the ``enc_seq`` frames."""
     enc: dict = {f"b{i}": block_specs(cfg, "enc") for i in range(cfg.n_enc_layers)}
-    enc["norm"] = L.ParamSpec((cfg.d_model,), init="zeros")
-    enc["pos_embed"] = L.ParamSpec((cfg.enc_seq, cfg.d_model), scale=0.02)
+    enc["norm"] = L.ParamSpec((cfg.d_model,), (None,), init="zeros")
+    enc["pos_embed"] = L.ParamSpec((cfg.enc_seq, cfg.d_model), (None, "embed"), scale=0.02)
     return enc
 
 
@@ -150,11 +164,11 @@ def model_specs(cfg: ModelConfig, segments: list[Segment]) -> dict:
         if seg.scanned:
             seg_spec = L.stack_specs(seg_spec, seg.n_groups)
         specs[f"seg{si}"] = seg_spec
-    specs["final_norm"] = L.ParamSpec((cfg.d_model,), init="zeros")
+    specs["final_norm"] = L.ParamSpec((cfg.d_model,), (None,), init="zeros")
     if cfg.is_encoder_decoder:
         specs["encoder"] = encoder_specs(cfg)
     if cfg.n_patches:
-        specs["patch_proj"] = L.ParamSpec((cfg.d_model, cfg.d_model))
+        specs["patch_proj"] = L.ParamSpec((cfg.d_model, cfg.d_model), ("embed", None))
     return specs
 
 
@@ -207,6 +221,8 @@ class Model(nn.Module):
         self,
         cfg: ModelConfig,
         pc: ParallelConfig | None = None,
+        mesh=None,
+        rules: "dict | None" = None,
         compute_dtype: torch.dtype = torch.bfloat16,
         q_chunk: int = 1024,
         kv_chunk: int = 1024,
@@ -215,28 +231,74 @@ class Model(nn.Module):
     ):
         super().__init__()
         _check_in_slice(cfg)
-        dev = resolve_device(device)
+        dev = resolve_device(device, allow_meta=True)
         self.cfg = cfg
         self.pc = pc or ParallelConfig()
+        self.mesh = mesh
+        if mesh is not None and rules is None:
+            rules = sh.rules_for_model(cfg, self.pc, mesh)
+        self.rules = rules
         self.compute_dtype = compute_dtype
         self.segments = build_segments(cfg, self.pc.scan_layers)
         self.q_chunk = q_chunk
         self.kv_chunk = kv_chunk
         self.kinds = cfg.layer_kinds
-        self.embed = L.ParamTree(L.embed_specs(cfg), dev, param_dtype)
+        place = None
+        if mesh is not None:
+            place = lambda spec, dt: sh.sharded_zeros(
+                mesh, spec.shape, sh.spec_for(mesh, spec.shape, spec.logical, rules), dt, dev)
+        tree = lambda specs, fp32=frozenset(): L.ParamTree(specs, dev, param_dtype, fp32,
+                                                           place=place)
+        top = model_specs(cfg, [])  # the leaves outside the layer stack
+        self.embed = tree(top["embed"])
         self.layers = nn.ModuleList(
-            L.ParamTree(block_specs(cfg, kind, i), dev, param_dtype, FP32_PARAMS)
-            for i, kind in enumerate(self.kinds))
-        zeros = lambda *shp: nn.Parameter(
-            torch.zeros(shp, dtype=param_dtype, device=dev), requires_grad=False)
-        self.final_norm = zeros(cfg.d_model)
-        self.encoder = (L.ParamTree(encoder_specs(cfg), dev, param_dtype)
-                        if cfg.is_encoder_decoder else None)
-        self.patch_proj = zeros(cfg.d_model, cfg.d_model) if cfg.n_patches else None
+            tree(block_specs(cfg, kind, i), FP32_PARAMS) for i, kind in enumerate(self.kinds))
+        leaf = lambda name: tree({name: top[name]})[name]
+        self.final_norm = leaf("final_norm")
+        self.encoder = tree(top["encoder"]) if cfg.is_encoder_decoder else None
+        self.patch_proj = leaf("patch_proj") if cfg.n_patches else None
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
+
+    # -- constraints --------------------------------------------------------
+
+    def _constrain(self, x, logical):
+        if self.mesh is None or self.rules is None:
+            return x
+        return sh.constrain(x, self.mesh, logical, self.rules)
+
+    def _norm(self, x, gamma):
+        """`rms_norm` of the residual stream, then (on a mesh) its sequence
+        gathered: Megatron-SP's all-gather ahead of a block's projections,
+        which GSPMD inserts on its own.  DTensor would instead flatten the
+        seq-sharded (B, S) into each matmul as a strided shard, which torch
+        2.11's DTensor cannot do and 2.13's plans slowly."""
+        return self._constrain(L.rms_norm(x, gamma, self.cfg.norm_eps), GATHERED)
+
+    @property
+    def _mesh_constrain(self):
+        """`_constrain` for the layers' ``constrain_fn`` on a mesh, else None."""
+        return self._constrain if self.mesh is not None else None
+
+    def _residual(self, x, out):
+        """``x + out``, ``out`` first (on a mesh) redistributed to the
+        residual stream's sequence sharding: Megatron-SP's reduce-scatter
+        after a block, so that the backward hands the block its grad in
+        its own layout (torch 2.11's DTensor cannot flatten a seq-sharded
+        grad into the block's matmuls)."""
+        return x + self._constrain(out, SEQ_SHARD)
+
+    def _moe_groups(self) -> int:
+        """Dispatch groups for MoE = number of data shards (GShard groups)."""
+        if self.mesh is None:
+            return 1
+        sizes = sh.mesh_axes(self.mesh)
+        g = 1
+        for ax in self.pc.all_data_axes:
+            g *= sizes.get(ax, 1)
+        return g
 
     # -- specs / init / layouts ---------------------------------------------
 
@@ -245,6 +307,11 @@ class Model(nn.Module):
 
     def param_shapes(self) -> dict:
         return {path: s.shape for path, s in L.tree_leaves(self.specs())}
+
+    def logical(self) -> dict:
+        """The spec tree's logical axes (stacked leaves lead with
+        ``layers``)."""
+        return L.logical_tree(self.specs())
 
     def _targets(self, path: str) -> tuple[list[str], bool]:
         """The ``named_parameters`` names a reference leaf path covers, in
@@ -327,13 +394,25 @@ class Model(nn.Module):
         """The params the forward reads: the model's own, or ``params``
         (every name of ``named_parameters``, e.g. bf16 casts of them)."""
         if params is None:
-            return dict(embed=self.embed, layers=list(self.layers), final_norm=self.final_norm,
-                        encoder=self.encoder, patch_proj=self.patch_proj)
+            return dict(embed=self._embed_view(self.embed), layers=list(self.layers),
+                        final_norm=self.final_norm, encoder=self.encoder,
+                        patch_proj=self.patch_proj)
         tree = _nest(params)
-        return dict(embed=tree["embed"],
+        return dict(embed=self._embed_view(tree["embed"]),
                     layers=[tree["layers"][str(i)] for i in range(len(self.kinds))],
                     final_norm=tree["final_norm"], encoder=tree.get("encoder"),
                     patch_proj=tree.get("patch_proj"))
+
+    def _embed_view(self, emb):
+        """The embedding leaves; on a mesh each read through a redistribute
+        to its own placement, so that a tied table's two grads (the
+        embedding's and the unembedding's, in different layouts) each come
+        back in the param's layout before autograd sums them (torch 2.11's
+        DTensor cannot sum them as they are)."""
+        if self.mesh is None:
+            return emb
+        specs = L.embed_specs(self.cfg)
+        return {k: self._constrain(emb[k], s.logical) for k, s in specs.items()}
 
     # -- inputs and the encoder ---------------------------------------------
 
@@ -370,9 +449,11 @@ class Model(nn.Module):
             p = enc[f"b{i}"]
             h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
             q, k, v = L._project_qkv(p["attn"], h, cfg, positions, cfg.rope_theta)
-            out = L.chunked_attention(q, L._repeat_kv(k, n_rep), L._repeat_kv(v, n_rep),
-                                      causal=False, q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
-            x = x + out.reshape(b, s, -1).to(x.dtype) @ p["attn"]["wo"].to(x.dtype)
+            attend = functools.partial(L.chunked_attention, causal=False,
+                                       q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+            out = L._attend(attend, q, L._repeat_kv(k, n_rep), L._repeat_kv(v, n_rep),
+                            self._mesh_constrain)
+            x = x + L.reshape(out, b, s, -1).to(x.dtype) @ p["attn"]["wo"].to(x.dtype)
             h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
             x = x + L.mlp(p["mlp"], h, cfg)
         return L.rms_norm(x, enc["norm"], cfg.norm_eps)
@@ -385,31 +466,34 @@ class Model(nn.Module):
         ``(k, v, xk, xv)`` for ``xattn``, ``dict(conv, state)`` for the
         recurrent kinds."""
         cfg = self.cfg
-        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        h = self._norm(x, p["norm1"])
         if kind in ("attn", "local", "xattn"):
             out, cache = L.attention_train(
                 p["attn"], h, cfg, "attn" if kind == "xattn" else kind, cfg.rope_theta,
-                q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+                q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
+                constrain_fn=self._mesh_constrain)
         elif kind == "ssm":
             out, cache = S.mamba2_forward(p["ssm"], h, cfg)
-            return x + out, cache, None
+            return self._residual(x, out), cache, None
         elif kind == "rglru":
             out, cache = S.rglru_forward(p["rglru"], h, cfg)
         else:
             raise ValueError(kind)
-        x = x + out
+        x = self._residual(x, out)
         if kind == "xattn":
-            h = L.rms_norm(x, p["norm_x"], cfg.norm_eps)
+            h = self._norm(x, p["norm_x"])
             xkv = L.encode_kv(p["xattn"], enc_out, cfg)
-            x = x + L.cross_attention(p["xattn"], h, xkv, cfg)
+            x = self._residual(x, L.cross_attention(p["xattn"], h, xkv, cfg,
+                                                    constrain_fn=self._mesh_constrain))
             cache = (*cache, *xkv)
-        h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        h = self._norm(x, p["norm2"])
         aux = None
         if "moe" in p:
-            ff, aux = L.moe_ffn(p["moe"], h, cfg)
+            ff, aux = L.moe_ffn(p["moe"], h, cfg, n_groups=self._moe_groups(),
+                                constrain_fn=self._mesh_constrain)
         else:
             ff = L.mlp(p["mlp"], h, cfg)
-        return x + ff, cache, aux
+        return self._constrain(self._residual(x, ff), SEQ_SHARD), cache, aux
 
     def _group_train(self, group, x, enc_out):
         """The blocks of one scan group -> (x, summed aux loss)."""
@@ -439,6 +523,7 @@ class Model(nn.Module):
         cfg = self.cfg
         P = self._view(params)
         x, enc_out = self._inputs(P, batch)
+        x = self._constrain(x, SEQ_SHARD)
         remat = self.pc.remat if torch.is_grad_enabled() else "none"
         kw = dict(use_reentrant=False)
         if remat == "block":
@@ -456,7 +541,7 @@ class Model(nn.Module):
                 else:
                     x, aux = run(x, enc_out)
                 aux_total = aux_total + aux
-        x = L.rms_norm(x, P["final_norm"], cfg.norm_eps)
+        x = self._norm(x, P["final_norm"])
         if cfg.n_patches:
             x = x[:, cfg.n_patches:, :]
         return x, aux_total
@@ -484,8 +569,10 @@ class Model(nn.Module):
         def chunk_nll(xq, lq, mq):
             logits = L.unembed(P["embed"], xq, cfg).float()
             logz = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, lq[..., None])[..., 0]
-            return torch.sum((logz - gold) * mq)
+            # on a mesh a vocab-sharded gather is a masked partial sum,
+            # reduced here: DTensor keeps its mask for the gather's own shape
+            gold = self._constrain(logits.gather(-1, lq[..., None]), ("batch", None, None))
+            return torch.sum((logz - gold[..., 0]) * mq)
 
         s = x.shape[1]
         c = L._pick_chunk(s, ce_chunk)
@@ -552,15 +639,29 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_seq: int) -> list[dict]:
         return [self.cache_shape_for(k, batch, max_seq) for k in self.kinds]
 
+    def cache_logical_tree(self) -> list[dict]:
+        """The reference's cache layout of logical axes: one ``{b{i}: ...}``
+        per segment, a scanned segment's leaves leading with ``layers``
+        (the recurrent kinds' ``(conv, state)`` pair as the port's
+        ``dict(conv, state)``)."""
+        out = []
+        for seg in self.segments:
+            seg_l = {f"b{i}": self.cache_logical(k) for i, k in enumerate(seg.kinds)}
+            if seg.scanned:
+                seg_l = {b: {n: ("layers", *lg) for n, lg in c.items()}
+                         for b, c in seg_l.items()}
+            out.append(seg_l)
+        return out
+
     def _block_decode(self, p, x, kind, cache, pos: int):
         cfg = self.cfg
         h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
         if kind in ("attn", "local", "xattn"):
             out, cache = L.attention_decode(p["attn"], h, cfg, "attn" if kind == "xattn" else kind,
-                                            cfg.rope_theta, cache, pos)
+                                            cfg.rope_theta, cache, pos, self._mesh_constrain)
         elif kind == "ssm":
             out, cache = S.mamba2_decode(p["ssm"], h, cfg, cache)
-            return x + out, cache
+            return self._constrain(x + out, SEQ_SHARD), cache
         elif kind == "rglru":
             out, cache = S.rglru_decode(p["rglru"], h, cfg, cache)
         else:
@@ -568,19 +669,22 @@ class Model(nn.Module):
         x = x + out
         if kind == "xattn":
             h = L.rms_norm(x, p["norm_x"], cfg.norm_eps)
-            x = x + L.cross_attention(p["xattn"], h, (cache["xk"], cache["xv"]), cfg)
+            x = x + L.cross_attention(p["xattn"], h, (cache["xk"], cache["xv"]), cfg,
+                                      constrain_fn=self._mesh_constrain)
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         if "moe" in p:
-            ff, _ = L.moe_ffn(p["moe"], h, cfg)
+            ff, _ = L.moe_ffn(p["moe"], h, cfg, n_groups=self._moe_groups(),
+                              constrain_fn=self._mesh_constrain)
         else:
             ff = L.mlp(p["mlp"], h, cfg)
-        return x + ff, cache
+        return self._constrain(x + ff, SEQ_SHARD), cache
 
     def decode_step(self, caches: list[dict], token: torch.Tensor, pos: int):
         """One decode step.  token: (B,) ints on the model's device; pos: the
         host int position, one for the whole batch (after the patch prefix,
         if any).  The caches are updated in place and returned."""
         x = L.embed(self.embed, token[:, None], self.cfg).to(self.compute_dtype)
+        x = self._constrain(x, SEQ_SHARD)
         for i, (p, kind) in enumerate(zip(self.layers, self.kinds)):
             x, caches[i] = self._block_decode(p, x, kind, caches[i], pos)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -595,6 +699,7 @@ class Model(nn.Module):
         final fp32 state."""
         cfg, cd = self.cfg, self.compute_dtype
         x, enc_out = self._inputs(self._view(), batch)
+        x = self._constrain(x, SEQ_SHARD)
         caches = []
         for p, kind in zip(self.layers, self.kinds):
             x, cache, _ = self._block_train(p, x, kind, enc_out)

@@ -53,14 +53,14 @@ def mamba2_specs(cfg) -> dict:
     g = 1  # single B/C group (mamba2 default ngroups=1)
     d_in = 2 * di + 2 * g * n + nh
     return dict(
-        in_proj=ParamSpec((d, d_in)),
-        conv_w=ParamSpec((cfg.conv_width, di + 2 * g * n)),
-        conv_b=ParamSpec((di + 2 * g * n,), init="zeros"),
-        a_log=ParamSpec((nh,), init="ones"),
-        dt_bias=ParamSpec((nh,), init="zeros"),
-        d_skip=ParamSpec((nh,), init="ones"),
-        norm=ParamSpec((di,), init="zeros"),
-        out_proj=ParamSpec((di, d)),
+        in_proj=ParamSpec((d, d_in), ("embed", "ssm_inner")),
+        conv_w=ParamSpec((cfg.conv_width, di + 2 * g * n), ("conv", "ssm_inner")),
+        conv_b=ParamSpec((di + 2 * g * n,), ("ssm_inner",), init="zeros"),
+        a_log=ParamSpec((nh,), ("ssm_heads",), init="ones"),
+        dt_bias=ParamSpec((nh,), ("ssm_heads",), init="zeros"),
+        d_skip=ParamSpec((nh,), ("ssm_heads",), init="ones"),
+        norm=ParamSpec((di,), ("ssm_inner",), init="zeros"),
+        out_proj=ParamSpec((di, d), ("ssm_inner", "embed")),
     )
 
 
@@ -177,16 +177,16 @@ def rglru_specs(cfg) -> dict:
     d = cfg.d_model
     w = cfg.lru_width or d
     return dict(
-        in_x=ParamSpec((d, w)),
-        in_gate=ParamSpec((d, w)),
-        conv_w=ParamSpec((cfg.conv_width, w)),
-        conv_b=ParamSpec((w,), init="zeros"),
-        wa=ParamSpec((w, w)),
-        ba=ParamSpec((w,), init="zeros"),
-        wx=ParamSpec((w, w)),
-        bx=ParamSpec((w,), init="zeros"),
-        lam=ParamSpec((w,), init="ones"),
-        out_proj=ParamSpec((w, d)),
+        in_x=ParamSpec((d, w), ("embed", "lru")),
+        in_gate=ParamSpec((d, w), ("embed", "lru")),
+        conv_w=ParamSpec((cfg.conv_width, w), ("conv", "lru")),
+        conv_b=ParamSpec((w,), ("lru",), init="zeros"),
+        wa=ParamSpec((w, w), ("lru", None)),
+        ba=ParamSpec((w,), (None,), init="zeros"),
+        wx=ParamSpec((w, w), ("lru", None)),
+        bx=ParamSpec((w,), (None,), init="zeros"),
+        lam=ParamSpec((w,), (None,), init="ones"),
+        out_proj=ParamSpec((w, d), ("lru", "embed")),
     )
 
 

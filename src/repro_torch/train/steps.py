@@ -12,6 +12,7 @@ from typing import Callable
 
 import torch
 
+from ..models.layers import reshape
 from ..models.model import Model
 from ..optim.adamw import AdamWConfig, adamw_update, global_norm
 
@@ -37,11 +38,15 @@ def make_train_step(
 
     ``cast_bf16``: the forward reads bf16 casts of the fp32 master params
     (one cast per step), and the grads flow back to the masters through
-    the cast.  ``grad_shardings`` places grads on a mesh in the reference;
-    one device has none, so anything but ``None`` raises `ValueError`.
+    the cast.  ``grad_shardings`` (a model on a mesh only; `ValueError`
+    otherwise): placements keyed like ``params``; the grads (DTensors) are
+    redistributed to them right after autograd, so the data-parallel
+    reduction of a param's grad lands as a reduce-scatter into its shards
+    instead of an all-reduce of the whole grad (the reference's
+    ``with_sharding_constraint`` on the grads).
     """
-    if grad_shardings is not None:
-        raise ValueError("grad_shardings: the port runs on one device and shards nothing; "
+    if grad_shardings is not None and model.mesh is None:
+        raise ValueError("grad_shardings: the model is on no mesh and shards nothing; "
                          "pass None")
 
     def grad_fn(params: dict, batch: dict):
@@ -56,7 +61,9 @@ def make_train_step(
     def train_step(params: dict, opt_state: dict, batch: dict):
         with torch.enable_grad():
             if grad_accum > 1:
-                micro = {k: x.reshape(grad_accum, x.shape[0] // grad_accum, *x.shape[1:])
+                # (on a mesh a batch sharded finer than grad_accum divides is
+                # gathered first: `layers.reshape`)
+                micro = {k: reshape(x, grad_accum, x.shape[0] // grad_accum, *x.shape[1:])
                          for k, x in batch.items()}
                 grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                          for n, p in params.items()}
@@ -68,6 +75,8 @@ def make_train_step(
                     loss = loss + mb_loss / grad_accum
             else:
                 loss, _, grads = grad_fn(params, batch)
+        if grad_shardings is not None:
+            grads = {n: g.redistribute(g.device_mesh, grad_shardings[n]) for n, g in grads.items()}
 
         lr = schedule(opt_state["step"])
         params, opt_state = adamw_update(grads, opt_state, params, lr, opt_cfg)

@@ -545,3 +545,62 @@ def test_train_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
                        v=model.to_tree(resumed["opt_state"]["v"])))
     for (path, got), (_, w) in zip(L.tree_leaves(tree), L.tree_leaves(want)):
         assert got.device.type == "cuda" and got.dtype == w.dtype and torch.equal(got, w), path
+
+
+@pytest.mark.cuda
+def test_mesh_variation_summary_on_card_equals_cpu(cuda_device):
+    """The mesh explorer's constant sweep selects on the card exactly as on
+    the CPU (winners, shares and yield), with and without a latency bound."""
+    from repro_torch.core import mesh_explorer as MX
+
+    rng = np.random.default_rng(3)
+    evals = []
+    for i in range(12):
+        rec = dict(roofline=dict(flops=float(rng.uniform(1e15, 5e15)),
+                                 hbm_bytes=float(rng.uniform(1e12, 9e12)),
+                                 link_bytes=float(rng.uniform(1e11, 9e11))),
+                   n_chips=(256, 512)[i % 2])
+        evals.append(MX.MeshEvaluation(
+            topo=f"t{i % 4}", recipe=f"r{i}", latency_s=float(rng.uniform(0.1, 2.0)),
+            energy_j=MX.energy_proxy(rec), hbm_gb=float(rng.uniform(4, 20)),
+            fits=bool(i % 3), bottleneck="compute", record=rec))
+    variants = MX.constant_corners(0.4)
+    for max_latency_s in (None, 1.0):
+        card = MX.variation_summary(evals, variants, max_latency_s, device=cuda_device)
+        assert card == MX.variation_summary(evals, variants, max_latency_s, device="cpu")
+
+
+@pytest.mark.cuda
+def test_dryrun_argument_bytes_match_the_card(cuda_device, tmp_path, monkeypatch):
+    """The dry-run's argument bytes of a decode step on a (1, 1) mesh equal
+    the bytes of the same arguments on the card, and the card's allocation
+    for them within the caching allocator's rounding per tensor (512 B;
+    a large tensor's block may keep the rest of its 2 MiB-rounded segment)
+    -- chip_smoke.py phase 13 (c) at smoke size."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import mesh as PM
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.config import SHAPES, ShapeConfig
+    from repro_torch.models.model import Model
+
+    cfg = smoke_config("whisper-tiny")
+    monkeypatch.setitem(SHAPES, "decode_32k", ShapeConfig("decode_32k", 256, 8, "decode"))
+    s = SHAPES["decode_32k"]
+    try:
+        rec = run_cell("whisper-tiny", "decode_32k", False, str(tmp_path), mesh_shape=(1, 1),
+                       overrides=dict(cfg=cfg))
+    finally:
+        PM.destroy_fake_world()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg, device=cuda_device, param_dtype=torch.bfloat16)
+    caches = model.init_cache(s.global_batch, s.seq_len)
+    token = torch.zeros(s.global_batch, dtype=torch.int32, device=cuda_device)
+    real = torch.cuda.memory_allocated() - base
+    sizes = [t.nbytes for t in (*model.parameters(), *(t for c in caches for t in c.values()),
+                                token)]
+    est = rec["memory"]["argument_size_in_bytes"]
+    assert sum(sizes) == est
+    slack = sum(512 if n <= 1 << 20 else 2 << 20 for n in sizes)
+    assert abs(real - est) <= slack, (est, real, slack)
+    assert rec["hbm_per_device_gb"] * 2**30 >= est - 2**30 * 5e-4  # rounded to 1e-3 GB

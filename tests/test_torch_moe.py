@@ -182,3 +182,30 @@ def test_published_capacity_drops_in_the_forward_and_matches_the_reference():
     assert len(seen) == 1 and int((~seen[0].keep).sum()) > 0
     np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits), atol=1e-4, rtol=0)
     np.testing.assert_allclose(float(aux), float(r_aux), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_groups", [1, 2])
+@pytest.mark.parametrize("case", ["dropless", "overflow"])
+def test_routing_counts_equal_the_in_place_forms_bit_for_bit(case, n_groups):
+    """The expert counts of the aux loss (an out-of-place ``index_add``)
+    and each assignment's capacity slot (an exclusive prefix sum of the
+    group's counts, in place of a ``searchsorted`` DTensor cannot shard)
+    equal the in-place ``index_add_`` and the ``searchsorted`` forms bit
+    for bit on the CPU."""
+    cf, bias = (8.0, 0.0) if case == "dropless" else (1.25, 3.0)
+    cfg, params, x = moe_case(cf, bias)
+    p = {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+    xt = torch.from_numpy(x).reshape(n_groups, -1, cfg.d_model)
+    r = L.moe_route(p, xt, cfg)
+    g, ng, _ = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    flat = r.expert_idx.reshape(-1)
+    ce = torch.zeros(e).index_add_(0, flat, torch.ones(flat.shape))
+    aux = e * torch.sum(r.probs.mean((0, 1)) * (ce / (g * ng * k)))
+    assert torch.equal(r.aux_loss, aux)
+    se = r.expert_idx.reshape(g, ng * k).gather(1, r.order)
+    run_start = torch.searchsorted(se, torch.arange(e).expand(g, e).contiguous(), side="left")
+    pos = torch.arange(ng * k) - run_start.gather(1, se)
+    assert torch.equal(r.keep, pos < r.cap)
+    assert torch.equal(r.dst, se * r.cap + torch.where(pos < r.cap, pos, 0))
+    assert (case == "overflow") == bool((~r.keep).any())
