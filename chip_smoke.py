@@ -155,13 +155,31 @@ and then runs these phases, failing (non-zero exit) on any error:
    card: the estimate's argument bytes must equal the real arguments'
    bytes, and the card's allocation for them within the caching
    allocator's rounding per tensor; its HBM must not be below them; the
-   ratio of the estimate to ``max_memory_allocated`` is printed.  Neither K1 nor K2 is launched.
+   ratio of the estimate to ``max_memory_allocated`` is printed; (d)
+   ``run_cell`` of mamba2-780m x train_4k on one 16x16 mesh, the base
+   recipe, at published width and 24 of its 48 layers: the recurrent
+   blocks' backward through the port's ``softplus_backward`` and
+   ``constant_pad_nd`` sharding rules, a record with work, collectives
+   and memory, its trace time and per-device costs printed.  Neither K1
+   nor K2 is launched.
+14. The device-discipline lint (``repro_torch.analysis``) on the card:
+   (a) the AST layer over ``src/repro_torch``, no new finding against the
+   checked-in baseline; (b) the graph layer with ``device="cuda"`` over
+   every registered kernel, no new finding, the K1 and K2 builders
+   launching ``eval_mega``, ``sig_eval`` and ``cim`` once each (the hand
+   kernels ran, not their plain versions), every output equal to the same
+   builder's on the CPU (bits, fp64 to 1e-12); per kernel the aten op
+   count, the syncs and the launches are printed; (c)
+   ``select_best_batch_device`` on (4, 96) CUDA operands: no
+   ``_local_scalar_dense``, and the only copy to the host is the (4,)
+   winner payload (the operands never cross), its winners equal to the
+   host filter's.
 
 Kernel times are device times of back-to-back launches; ``bound_ms``
 counts each byte a call must move once, over the card's HBM rate.
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
-build seconds, per-phase times (the launches of phases 5-13 on lines of
+build seconds, per-phase times (the launches of phases 5-14 on lines of
 their own), the script's wall time, a ``{"kernels": [...]}`` JSON line
 (launch counts of phase 2) and, last, ``{"ok": true, "device": {...}}``.
 It exits non-zero without a CUDA device and when ``src/repro_torch`` is
@@ -2271,6 +2289,11 @@ def phase_llm12(dev, rng):
 MESH_ARCH, MESH_SHAPE = "minicpm-2b", "train_4k"
 #: (b) the reference's own dry-run test cell and an MoE arch, decode
 MESH_SUITE = (("whisper-tiny", "decode_32k"), ("deepseek-moe-16b", "decode_32k"))
+#: (d) a recurrent family's train cell at published width, depth cut by
+#: half: the whole 48 layers traced in 154.7 s on the card's host, past
+#: the phase's share of the script's time, 24 in 79.6 s (the cost is per
+#: layer)
+MESH_RECURRENT, MESH_RECURRENT_LAYERS = "mamba2-780m", 24
 #: processes tracing the cells (the trace is single-threaded host work)
 MESH_WORKERS = 8
 #: PyTorch's CUDA caching allocator: the largest small-pool request and
@@ -2349,12 +2372,43 @@ def mesh_memory(dev) -> None:
     free()
 
 
+def mesh_recurrent() -> None:
+    """(d): the recurrent blocks' train step on a 16x16 mesh (it runs
+    through `aten.softplus_backward`, which takes the port's sharding
+    rule): a record with work, memory and the reference's keys."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh_explorer import StepRecipe
+    from repro_torch.launch.dryrun import run_cell
+
+    cfg = get_config(MESH_RECURRENT)
+    cut = dataclasses.replace(cfg, n_layers=MESH_RECURRENT_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as tmp:
+        t = time.time()
+        rec = run_cell(MESH_RECURRENT, "train_4k", False, tmp, tag="base", mesh_shape=(16, 16),
+                       overrides=dict(cfg=cut, **StepRecipe("base").overrides()))
+        wall = time.time() - t
+    rl, mem = rec["roofline"], rec["memory"]
+    check(rec["n_chips"] == 256 and rl["flops"] > 0 and rl["hbm_bytes"] > 0
+          and rec["n_collectives"] > 0,
+          f"mesh (d): {MESH_RECURRENT} x train_4k traced no work or no collective")
+    check(mem["temp_size_in_bytes"] > 0 and mem["argument_size_in_bytes"] > 0
+          and mem["alias_size_in_bytes"] > 0 and rec["trip_counts"] == {"seg0": cut.n_layers},
+          f"mesh (d): {MESH_RECURRENT} x train_4k has no memory record: {json.dumps(mem)}")
+    print(f"mesh (d) {MESH_RECURRENT} x train_4k, base recipe, one 16x16 mesh, at published "
+          f"width and depth {cut.n_layers} of {cfg.n_layers} (cut): trace {rec['lower_s']} s "
+          f"(run_cell wall {wall:.3f} s); argument {mem['argument_size_in_bytes']} B, temp "
+          f"{mem['temp_size_in_bytes']} B, donated {mem['alias_size_in_bytes']} B")
+    print_cells([rec])
+
+
 def phase_mesh(dev):
     """The mesh explorer and its dry-run layer: (a) `explore_mesh` at
     published size over the default grid, selection on the card against
     the CPU; (b) `explore_mesh_suite` over two decode workloads; (c) the
-    dry-run's memory record against a real decode step.  Neither K1 nor
-    K2 is launched."""
+    dry-run's memory record against a real decode step; (d) a recurrent
+    train cell.  Neither K1 nor K2 is launched."""
     import logging
 
     from repro_torch.core import mesh_explorer as MX
@@ -2408,9 +2462,84 @@ def phase_mesh(dev):
         print(f"mesh (b) explore_mesh_suite in {suite_s:.3f} s: global pick "
               f"{json.dumps(suite['best'])} (card == CPU)")
     mesh_memory(dev)
+    mesh_recurrent()
     launched = k1_k2_idle("mesh explorer")
     wall = time.time() - t_phase
     print(f"mesh phase: wall {wall:.3f} s; K1/K2 launches {json.dumps(launched)}")
+    return wall
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the device-discipline lint on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_lint(dev):
+    """(a) the AST layer over ``src/repro_torch``; (b) the graph layer on
+    the card over every registered kernel: no new finding, the hand
+    kernels' builders launch them, and every output equals the same
+    builder's on the CPU; (c) `select_best_batch_device` on CUDA tensors:
+    no host read, and the only transfer back is the winner payload."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import ast_lint, graph_lint, registry
+    from repro_torch.analysis.findings import load_baseline, split_baselined
+    from repro_torch.core import batch as B
+
+    t_phase = time.time()
+    zero_launches()
+    baseline = load_baseline(str(ROOT / "src" / "repro_torch" / "analysis" / "baseline.json"))
+    t = time.time()
+    findings = ast_lint.lint_paths([str(ROOT / "src" / "repro_torch")], root=str(ROOT))
+    new, old = split_baselined(findings, baseline)
+    check(not new, "lint (a): " + "; ".join(f.format() for f in new))
+    print(f"lint (a) AST layer over src/repro_torch: {len(new)} new, {len(old)} baselined "
+          f"finding(s) in {time.time() - t:.3f} s")
+
+    launched = {}
+    specs = registry.kernel_specs()
+    t = time.time()
+    for spec in specs:
+        run = graph_lint.run_kernel(spec, dev)
+        new, _ = split_baselined(graph_lint.findings_of(run), baseline)
+        check(not new, f"lint (b): {spec.name}: " + "; ".join(f.format() for f in new))
+        cpu = graph_lint.run_kernel(spec, "cpu")
+        check(cpu.error is None and graph_lint.same_outputs(run.output, cpu.output),
+              f"lint (b): {spec.name} on the card differs from the CPU")
+        launched.update(run.launches)
+        print(f"lint (b) {spec.module}.{spec.name}: {sum(run.ops.values())} aten ops "
+              f"({len(run.ops)} kinds), syncs {run.syncs}, launches {json.dumps(run.launches)}; "
+              f"card == CPU")
+    graph_s = time.time() - t
+    check(launched == {"eval_mega": 1, "sig_eval": 1, "cim": 1},
+          f"lint (b): the hand kernels' builders launched {launched}")
+    check(registry.launch_counts() == {"eval_mega": 1, "sig_eval": 1, "cim": 1},
+          f"lint (b): the launch counters read {registry.launch_counts()}")
+
+    rng = np.random.default_rng(7)
+    host_energy = rng.random((4, 96))
+    host_fits = np.ones((1, 96), dtype=bool)
+    spec = registry.KernelSpec(
+        name="select_best_batch_device", module="repro_torch.core.batch",
+        build=lambda d: registry.KernelExample(
+            fn=B.select_best_batch_device,
+            args=(torch.from_numpy(host_energy).to(d), torch.from_numpy(host_fits).to(d)),
+            kwargs=dict(device=d)))
+    run = graph_lint.run_kernel(spec, dev)
+    check(run.error is None and not run.escapes and not run.drift,
+          f"lint (c): {run.error} {run.escapes} {run.drift}")
+    check("aten._local_scalar_dense.default" not in run.ops,
+          "lint (c): select_best_batch_device reads a device scalar on the host")
+    check(run.transfers == [("aten._to_copy.default", (4,))],
+          f"lint (c): transfers {run.transfers}, not the one (4,) winner payload")
+    check(np.array_equal(run.output, B.select_best_batch(host_energy, host_fits)),
+          "lint (c): select_best_batch_device's winners differ from the host filter's")
+    wall = time.time() - t_phase
+    print(f"lint (c) select_best_batch_device on (4, 96) CUDA operands: "
+          f"{sum(run.ops.values())} aten ops, no host read, one transfer {run.transfers}")
+    print(f"lint phase: wall {wall:.3f} s (graph layer over {len(specs)} kernels, card and "
+          f"CPU, {graph_s:.3f} s); launches {json.dumps(launched)}")
     return wall
 
 
@@ -2462,7 +2591,7 @@ def main() -> int:
     suite, cha, res, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
     mc, fused = phase_sweep(dev, suite, cha)
     times.update(phase_k2(dev, netlists, vectors))
-    # Phases 5-13 run after the kernel line's launch counts were taken
+    # Phases 5-14 run after the kernel line's launch counts were taken
     # (``launches`` is phase 2's); each phase sets the counts to 0 first.
     served = {n: suite[n] for n in SERVICE_CIRCUITS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2478,11 +2607,12 @@ def main() -> int:
     llm11_s = phase_llm11(dev, rng)
     llm12_s = phase_llm12(dev, rng)
     mesh_s = phase_mesh(dev)
-    print(f"phases 5-13 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
+    lint_s = phase_lint(dev)
+    print(f"phases 5-14 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
           f"CLI {cli_s:.3f} s, chaos {chaos_s:.3f} s, journal overhead {overhead_s:.3f} s, "
           f"system {system_s:.3f} s, LM serving {llm_s:.3f} s, MoE/recurrent LM serving "
           f"{llm11_s:.3f} s, enc-dec/VLM serving and training {llm12_s:.3f} s, mesh "
-          f"explorer {mesh_s:.3f} s")
+          f"explorer {mesh_s:.3f} s, lint {lint_s:.3f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

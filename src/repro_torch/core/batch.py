@@ -50,11 +50,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from ..analysis import registry as _registry
 from ..device import resolve_device
 from .aig import AigStats
 from .mapping import BITS_PER_GATE, macros_per_type
@@ -69,6 +71,7 @@ from .sram import (
     physical_energy_nj,
 )
 
+# repro: kernel-module — host syncs in device-adjacent code are annotated
 LEVEL_PAD = 64  # pad the level axis to multiples of this (shape bucketing)
 
 F64 = torch.float64
@@ -492,13 +495,14 @@ class _Operands:
     @classmethod
     def build(cls, ops, n_levels, topos: "TopologyTable", device) -> "_Operands":
         def i64(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)  # repro: host-boundary
 
         return cls(
             ops=i64(ops),
             n_levels=i64(n_levels),
             width=i64(topos.ops_per_cycle),
             mpt=i64(topos.macros_per_type),
+            # repro: host-boundary — upload
             is_single=torch.as_tensor(np.asarray(topos.is_single, dtype=bool), device=device),
             total_bits=i64(topos.total_bits),
             rows=i64(topos.rows),
@@ -577,6 +581,7 @@ def _model_tensors(params: ModelParams, device) -> ModelParams:
     / ``(V, T, 3)`` shape (`_evaluate_core` splits it by op type)."""
     out = {}
     for f in ModelParams._fields:
+        # repro: host-boundary — the model constants' upload
         t = torch.as_tensor(np.asarray(getattr(params, f), dtype=np.float64), device=device)
         if f != "e_op_marginal_fj":
             v = t.shape[0]
@@ -645,7 +650,7 @@ def _masked_tier_argmin_t(energy: torch.Tensor, tiers) -> torch.Tensor:
     pool = tiers[-1]
     for tier in tiers[-2::-1]:
         pool = torch.where(tier.any(dim=-1, keepdim=True), tier, pool)
-    return torch.argmin(torch.where(pool, energy, float("inf")), dim=-1)
+    return torch.argmin(torch.where(pool, energy, math.inf), dim=-1)
 
 
 def _select_core(energy, fits, feasible, latency, max_latency, use_latency):
@@ -749,6 +754,7 @@ class _LazyArrays:
     def __getattribute__(self, name):
         val = object.__getattribute__(self, name)
         if name in _LAZY_FIELDS and isinstance(val, torch.Tensor):
+            # repro: host-boundary — lazy-grid materialization on first access
             val = val.cpu().numpy()
             object.__setattr__(self, name, val)
         return val
@@ -764,6 +770,7 @@ class _LazyArrays:
         moves a single scalar across the boundary — the full tensor is
         NOT materialized (and stays lazy for later accesses).
         """
+        # repro: host-boundary — single-scalar device gather
         return float(self._raw(name)[idx])
 
     def _raw_size(self, name: str) -> int:
@@ -864,13 +871,13 @@ class ExplorationGrid(_LazyArrays):
             cycles=int(g("cycles", (t, r))),
             active_macro_cycles=int(g("active_macro_cycles", (t, r))),
             fits=bool(g("fits", (t, r))),
-            feasible=bool(np.asarray(self._raw("feasible")[t])),
+            feasible=bool(np.asarray(self._raw("feasible")[t])),  # repro: host-boundary
             latency_ns=g("latency_ns", (t, r)),
             energy_nj=g("energy_nj", (t, r)),
             power_mw=g("power_mw", (t, r)),
             throughput_gops=g("throughput_gops", (t, r)),
             tops_per_watt=g("tops_per_watt", (t, r)),
-            area_mm2=float(np.asarray(self._raw("area_mm2")[t])),
+            area_mm2=float(np.asarray(self._raw("area_mm2")[t])),  # repro: host-boundary
         )
 
 
@@ -971,13 +978,13 @@ class VariationGrid(_LazyArrays):
             cycles=int(g("cycles", (t, r))),
             active_macro_cycles=int(g("active_macro_cycles", (t, r))),
             fits=bool(g("fits", (t, r))),
-            feasible=bool(np.asarray(self._raw("feasible")[t])),
+            feasible=bool(np.asarray(self._raw("feasible")[t])),  # repro: host-boundary
             latency_ns=g("latency_ns", (v, t, r)),
             energy_nj=g("energy_nj", (v, t, r)),
             power_mw=g("power_mw", (v, t, r)),
             throughput_gops=g("throughput_gops", (v, t, r)),
             tops_per_watt=g("tops_per_watt", (v, t, r)),
-            area_mm2=float(np.asarray(self._raw("area_mm2")[v, t])),
+            area_mm2=float(np.asarray(self._raw("area_mm2")[v, t])),  # repro: host-boundary
         )
 
 
@@ -1135,13 +1142,13 @@ class SuiteGrid(_LazyArrays):
             cycles=int(g("cycles", (c, t, r))),
             active_macro_cycles=int(g("active_macro_cycles", (c, t, r))),
             fits=bool(g("fits", (c, t, r))),
-            feasible=bool(np.asarray(self._raw("feasible")[c, t])),
+            feasible=bool(np.asarray(self._raw("feasible")[c, t])),  # repro: host-boundary
             latency_ns=g("latency_ns", (c, t, r)),
             energy_nj=g("energy_nj", (c, t, r)),
             power_mw=g("power_mw", (c, t, r)),
             throughput_gops=g("throughput_gops", (c, t, r)),
             tops_per_watt=g("tops_per_watt", (c, t, r)),
-            area_mm2=float(np.asarray(self._raw("area_mm2")[t])),
+            area_mm2=float(np.asarray(self._raw("area_mm2")[t])),  # repro: host-boundary
         )
 
 
@@ -1264,13 +1271,13 @@ class SuiteVariationGrid(_LazyArrays):
             cycles=int(g("cycles", (c, t, r))),
             active_macro_cycles=int(g("active_macro_cycles", (c, t, r))),
             fits=bool(g("fits", (c, t, r))),
-            feasible=bool(np.asarray(self._raw("feasible")[c, t])),
+            feasible=bool(np.asarray(self._raw("feasible")[c, t])),  # repro: host-boundary
             latency_ns=g("latency_ns", (c, v, t, r)),
             energy_nj=g("energy_nj", (c, v, t, r)),
             power_mw=g("power_mw", (c, v, t, r)),
             throughput_gops=g("throughput_gops", (c, v, t, r)),
             tops_per_watt=g("tops_per_watt", (c, v, t, r)),
-            area_mm2=float(np.asarray(self._raw("area_mm2")[v, t])),
+            area_mm2=float(np.asarray(self._raw("area_mm2")[v, t])),  # repro: host-boundary
         )
 
 
@@ -1388,20 +1395,26 @@ class SelectionResult:
         return self.winner_metrics["energy_nj"]
 
 
+def _fused_core(o, model, feasible, max_latency, discipline, mode, use_latency):
+    """The fused kernel: `_evaluate_core` then `_fused_tail`, every
+    operand already on the device.  Returns (sched, mets, payload)."""
+    sched, mets = _evaluate_core(o, model, discipline, mode)
+    return sched, mets, _fused_tail(sched, mets, feasible, max_latency, use_latency)
+
+
 def _fused(ops, n_levels, topos, table, feasible, max_latency_ns, mode,
            discipline, shard, device):
     """Evaluate + select on the device; returns the device-resident
     schedule/metric dicts and the fetched `SelectionResult`."""
     sharded = _shard_variants(shard)
-    _, (sched, mets) = _run_suite(
-        ops, n_levels, topos, table, discipline, mode, device
-    )
     use_latency = max_latency_ns is not None
-    res = _fused_tail(
-        sched, mets,
+    sched, mets, res = _fused_core(
+        _Operands.build(ops, n_levels, topos, device),
+        _model_tensors(_model_params(table), device),
+        # repro: host-boundary — upload
         torch.as_tensor(np.asarray(feasible, dtype=bool), device=device),
-        float(max_latency_ns) if use_latency else 0.0,
-        use_latency,
+        float(max_latency_ns) if use_latency else 0.0,  # repro: host-boundary — a host scalar
+        discipline, mode, use_latency,
     )
     return sched, mets, _fetch_selection(res, sharded)
 
@@ -1488,15 +1501,15 @@ def _fetch_selection(res, sharded: bool) -> SelectionResult:
     """Materialize the small selection payload (the only device->host
     transfer of the fused path) and apply the host-side all-non-finite
     check that `select_best_batch` raises eagerly."""
-    has_finite = res["has_finite"].cpu().numpy()
+    has_finite = res["has_finite"].cpu().numpy()  # repro: host-boundary
     if not has_finite.all():
         raise ValueError(
             "fused selection: a batch cell has no finite energies"
         )
-    winner_idx = res["winner_idx"].cpu().numpy()
-    winner_mets = {k: v.cpu().numpy() for k, v in res["winner_mets"].items()}
-    nominal_latency = res["nominal_latency"].cpu().numpy()
-    nominal_fits = res["nominal_fits"].cpu().numpy()
+    winner_idx = res["winner_idx"].cpu().numpy()  # repro: host-boundary
+    winner_mets = {k: v.cpu().numpy() for k, v in res["winner_mets"].items()}  # repro: host-boundary
+    nominal_latency = res["nominal_latency"].cpu().numpy()  # repro: host-boundary
+    nominal_fits = res["nominal_fits"].cpu().numpy()  # repro: host-boundary
     payload = (
         winner_idx.nbytes
         + has_finite.nbytes
@@ -1528,14 +1541,16 @@ def select_best_batch_device(
     Same semantics as the host version: tiering, lowest-flat-index
     tie-breaking, non-finite energies inadmissible everywhere, ValueError
     on an empty grid or an all-non-finite batch cell.  Tensors already on
-    the device are used as they are (no host round trip).
+    the device are used as they are (no host round trip), and the only
+    transfer back is the winner payload: one index per batch cell, -1
+    marking a cell with no finite energy (which raises).
     """
     dev = resolve_device(device)
 
     def on_dev(x, dtype):
         if isinstance(x, torch.Tensor):
             return x.to(device=dev, dtype=dtype)
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # repro: host-boundary
 
     energy = on_dev(energy, F64)
     if energy.numel() == 0 or energy.shape[-1] == 0:
@@ -1547,15 +1562,16 @@ def select_best_batch_device(
         fits,
         on_dev(feasible, torch.bool) if feasible is not None else fits,
         on_dev(latency, F64) if use_latency else None,
-        float(max_latency) if use_latency else 0.0,
+        float(max_latency) if use_latency else 0.0,  # repro: host-boundary — a host scalar
         use_latency,
     )
-    # winner payload only — (…, V) indices + flags, never the grid
-    if not bool(has_finite.all()):
+    # winner payload only — (…, V) indices, never the grid
+    idx = torch.where(has_finite, idx, -1).cpu().numpy()  # repro: host-boundary
+    if (idx < 0).any():
         raise ValueError(
             "select_best_batch: a batch cell has no finite energies"
         )
-    return idx.cpu().numpy().astype(np.int64)
+    return idx.astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -1709,3 +1725,129 @@ def select_best_worst(energy, fits) -> tuple[int, int]:
     worst = int(np.argmax(np.where(pool, energy, -np.inf)))
     return best, worst
 
+
+# ---------------------------------------------------------------------------
+# Kernel registration (static analyzer)
+# ---------------------------------------------------------------------------
+# The reference's seven jitted kernels, each bound to the port function
+# that computes it, with the reference's `_example_operands` carried over
+# and uploaded to the lint's device.  The port merged each grid kernel
+# into its suite kernel: the grid names run the suite function on C = 1
+# (as `evaluate_batch` does) with the reference's grid operand shapes,
+# and drop the circuit axis from every output.
+
+
+def _example_operands(device) -> dict:
+    """Tiny but shape-representative kernel operands: T=2 topologies,
+    R=2 recipes, L=4 levels, V=2 model variants, C=2 circuits."""
+
+    def t(rows, dtype):
+        return torch.tensor(rows, dtype=dtype, device=device)
+
+    lvl = [[2, 1, 0], [1, 0, 1], [1, 2, 1], [0, 1, 1]]       # (L, 3)
+    ops = [lvl, lvl[::-1]]                                    # (R, L, 3)
+    v = 2
+
+    def const(value, *shape):  # host constants, uploaded by _model_tensors
+        return np.full((v, *shape), value, dtype=np.float64)
+
+    params = ModelParams(
+        f_clk_hz=const(1.0e9),
+        e_op_marginal_fj=const(5.0, 3),
+        p_ctrl_mw=const(0.1),
+        e_macro_cycle_fj=const(10.0),
+        e_col_cycle_fj=const(1.0),
+        alpha_mw_per_level=const(0.01),
+        pipeline_utilization=const(0.9),
+    )
+    i64 = torch.int64
+    topo = dict(
+        width=t([4, 8], i64),
+        mpt=t([[1, 1, 1], [2, 1, 1]], i64),
+        is_single=t([True, False], torch.bool),
+        total_bits=t([1024, 4096], i64),
+        rows=t([16, 32], i64),
+        cols=t([16, 32], i64),
+    )
+    return dict(
+        grid=_Operands(ops=t(ops, i64), n_levels=t([4, 3], i64), **topo),
+        suite=_Operands(ops=t([ops, ops], i64), n_levels=t([[4, 3], [3, 4]], i64), **topo),
+        model=_model_tensors(params, device),
+        feasible=t([True, True], torch.bool),
+        suite_feasible=t([[True, True], [True, True]], torch.bool),
+        max_latency=1.0e6,
+    )
+
+
+def _grid_form(core, lift=()):
+    """``core`` on grid operands: the circuit axis added to the `_Operands`
+    (and to the positional arguments at ``lift``) and taken off every
+    output."""
+
+    def fn(o, *args, **kwargs):
+        o = dataclasses.replace(o, ops=o.ops[None], n_levels=o.n_levels[None])
+        args = tuple(a[None] if i in lift else a for i, a in enumerate(args))
+        return _drop_circuit(core(o, *args, **kwargs))
+
+    return fn
+
+
+def _drop_circuit(out):
+    if isinstance(out, dict):
+        return {k: _drop_circuit(v) for k, v in out.items()}
+    if isinstance(out, tuple):
+        return tuple(_drop_circuit(v) for v in out)
+    return out[0]
+
+
+def _ex_schedule(suite: bool):
+    def build(device):
+        o = _example_operands(device)
+        return _registry.KernelExample(
+            fn=_schedule_core if suite else _grid_form(_schedule_core),
+            args=(o["suite" if suite else "grid"], "list"),
+        )
+
+    return build
+
+
+def _ex_evaluate(suite: bool):
+    def build(device):
+        o = _example_operands(device)
+        return _registry.KernelExample(
+            fn=_evaluate_core if suite else _grid_form(_evaluate_core),
+            args=(o["suite" if suite else "grid"], o["model"], "list", "physical"),
+        )
+
+    return build
+
+
+def _ex_fused(suite: bool):
+    def build(device):
+        o = _example_operands(device)
+        return _registry.KernelExample(
+            fn=_fused_core if suite else _grid_form(_fused_core, lift=(1,)),
+            args=(
+                o["suite" if suite else "grid"], o["model"],
+                o["suite_feasible" if suite else "feasible"], o["max_latency"],
+                "list", "physical", True,
+            ),
+        )
+
+    return build
+
+
+def _ex_select_batch(device):
+    energy = torch.tensor([[1.0, 2.0, 3.0], [3.0, 1.0, 2.0]], dtype=F64, device=device)  # (V, N)
+    masks = torch.tensor([[True, True, False]], device=device)                        # (1, N)
+    latency = torch.full((2, 3), 5.0, dtype=F64, device=device)
+    return _registry.KernelExample(
+        fn=_select_core, args=(energy, masks, masks, latency, 10.0, True)
+    )
+
+
+for _suite, _tag in ((False, "grid"), (True, "suite")):
+    _registry.register_kernel(f"schedule_{_tag}", __name__, _ex_schedule(_suite))
+    _registry.register_kernel(f"evaluate_{_tag}", __name__, _ex_evaluate(_suite))
+    _registry.register_kernel(f"fused_{_tag}", __name__, _ex_fused(_suite))
+_registry.register_kernel("select_batch", __name__, _ex_select_batch)

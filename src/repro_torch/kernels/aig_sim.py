@@ -32,8 +32,10 @@ plain torch version beside it (`eval_mega_plain` / `sig_eval_plain`: a
 loop over chunks and waves, vectorized within each wave).  Planes travel
 as int32 in torch (torch's CPU build lacks ``~``/``>>`` for uint32);
 uint32 lanes are reinterpreted with numpy ``.view`` at the host
-boundary.  ``LAUNCHES`` counts kernel launches per entry point and
-``TIER_LAUNCHES`` the ``eval_mega`` launches per word tier.
+boundary.  ``LAUNCHES`` counts kernel launches per entry point (a view
+of the registry's one counter, `analysis.registry.LAUNCH_COUNTS`) and
+``TIER_LAUNCHES`` the ``eval_mega`` launches per word tier (a breakdown
+of ``LAUNCHES["eval_mega"]``, kept in this module).
 
 Shape discipline: queries bucket into word tiers (k <= 5 / 10 / 14
 support vars -> 1 / 32 / 512 uint32 words); chunks are bounded by a
@@ -54,12 +56,16 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..analysis import registry as _registry
 from ..core.aig import Aig, _elementary_int
 from ..device import resolve_device
 from . import build
 
+# repro: kernel-module — host syncs in device-adjacent code are annotated
 #: Kernel launches per K1 entry point (plain-version calls do not count).
-LAUNCHES = {"eval_mega": 0, "sig_eval": 0}
+LAUNCHES = _registry.CounterView(("eval_mega", "sig_eval"))
+_registry.register_counter("eval_mega", __name__)
+_registry.register_counter("sig_eval", __name__)
 #: ``eval_mega`` launches per word tier (words per truth table).
 TIER_LAUNCHES = {1: 0, 32: 0, 512: 0}
 
@@ -259,6 +265,7 @@ def eval_mega_plain(waves, pin_rows, elem, rootp, meta) -> torch.Tensor:
     k, w = elem.shape
     out = torch.zeros((rootp.shape[0], w), dtype=torch.int32, device=elem.device)
     zero = torch.zeros((), dtype=torch.int32, device=elem.device)
+    # repro: host-boundary — the chunk table of a CPU tensor
     for wave_off, wave_cnt, row_base, row_cnt, root_off, root_cnt in meta.tolist():
         pin = pin_rows[row_base : row_base + row_cnt]
         vals = torch.where((pin >= 0)[:, None], elem[pin.clamp(0, k - 1).long()], zero)
@@ -274,7 +281,7 @@ def sig_eval_plain(waves, vals0, meta) -> torch.Tensor:
     rows of ``vals0`` (N, W) i32, PI rows pre-placed, run through its
     waves -> (N, W) i32."""
     vals = vals0.clone()
-    for wave_off, wave_cnt, row_base, row_cnt in meta.tolist():
+    for wave_off, wave_cnt, row_base, row_cnt in meta.tolist():  # repro: host-boundary
         rows = vals[row_base : row_base + row_cnt]  # a view: updated in place
         for ins in waves[wave_off : wave_off + wave_cnt]:
             _wave_step(rows, ins)
@@ -390,6 +397,7 @@ def eval_mega(waves, pin_rows, elem, rootp, meta, cw: int, max_rows: int) -> tor
     as `_eval_mega_tier` does); on CPU tensors the wrapper checks them."""
     dev = waves.device
     if dev.type == "cpu":
+        # repro: host-boundary — CPU operands, checked as host arrays
         _check_chunks(waves.numpy(), meta.numpy(), pin_rows.shape[0], max_rows, rootp.numpy())
         return eval_mega_plain(waves, pin_rows, elem, rootp, meta)
     if dev.type != "cuda":
@@ -436,6 +444,7 @@ def sig_eval(waves, vals0, meta, max_rows: int) -> torch.Tensor:
     `eval_mega`: by the caller on CUDA, here on the CPU."""
     dev = waves.device
     if dev.type == "cpu":
+        # repro: host-boundary — CPU operands, checked as host arrays
         _check_chunks(waves.numpy(), meta.numpy(), vals0.shape[0], max_rows)
         return sig_eval_plain(waves, vals0, meta)
     if dev.type != "cuda":
@@ -707,10 +716,10 @@ def _eval_mega_tier(
     _check_chunks(batch.waves, batch.meta, len(batch.pin_rows), batch.max_rows, batch.rootp)
     with build.device_faults("eval_mega", device):
         ops = batch.operands(device, _dev_elem(k_max, device))
-        out = eval_mega(*ops).cpu().numpy().view(np.uint32)
-    qoff = batch.qoff.tolist()
+        out = eval_mega(*ops).cpu().numpy().view(np.uint32)  # repro: host-boundary
+    qoff = batch.qoff.tolist()  # repro: host-boundary — host array
     if w == 1:
-        flat = out[:, 0].tolist()
+        flat = out[:, 0].tolist()  # repro: host-boundary — host array
         for pos, idx in enumerate(idxs):
             roots, support = items[idx]
             mask = (1 << (1 << len(support))) - 1
@@ -781,7 +790,7 @@ def eval_tts(
             tiers.setdefault(w, []).append(idx)
     for w, idxs in tiers.items():
         if members is not None:
-            mem = members[np.asarray(idxs, dtype=np.int64)]
+            mem = members[np.asarray(idxs, dtype=np.int64)]  # repro: host-boundary
         else:
             mem = _cone_members(aig, items, idxs)
         _eval_mega_tier(aig, prog, items, idxs, w, mem, results, dev)
@@ -819,13 +828,68 @@ def node_signatures(
     _check_engine(engine)
     dev = resolve_device(device)
     prog = program if program is not None else compile_aig(aig)
-    patterns = np.asarray(patterns, dtype=np.uint64)
+    patterns = np.asarray(patterns, dtype=np.uint64)  # repro: host-boundary
     n_words = patterns.shape[1]
     vals0 = np.zeros((prog.n_pad, 2 * n_words), dtype=np.uint32)
     vals0[1 : 1 + prog.n_pis] = patterns.view("<u4")
-    meta = np.array([[0, len(prog.waves), 0, prog.n_pad]], dtype=np.int32)
+    meta = np.array([[0, len(prog.waves), 0, prog.n_pad]], dtype=np.int32)  # repro: host-boundary
     _check_chunks(prog.waves, meta, prog.n_pad, prog.n_pad)
     with build.device_faults("sig_eval", dev):
         waves, v0, meta_t = upload(dev, prog.waves, vals0.view(np.int32), meta)
-        out = sig_eval(waves, v0, meta_t, prog.n_pad).cpu().numpy()
+        out = sig_eval(waves, v0, meta_t, prog.n_pad).cpu().numpy()  # repro: host-boundary
     return np.ascontiguousarray(out[: prog.n_nodes]).view("<u8")
+
+
+# ---------------------------------------------------------------------------
+# Kernel registration (static analyzer)
+# ---------------------------------------------------------------------------
+# The reference's jnp engines' builders, carried over to K1's batched
+# contract: one chunk of eight rows, two waves of four slots.  Slot 0 of
+# each wave is a real instruction (the reference's are all padding), so
+# the card has a result to agree with the CPU on.  ``x64=False``: K1 is
+# pure int32 bit algebra, there are no floats to drift.
+
+
+def _i32(rows, device) -> torch.Tensor:
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def _ex_waves(device) -> torch.Tensor:
+    pad = [0, 0, 0, 7]  # padding instructions write the scratch row
+    return _i32(
+        [
+            [[1, 1, 2, 3], pad, pad, pad],  # row 3 = ~row1 & row2
+            [[2, 3, 1, 5], pad, pad, pad],  # row 5 = row3 & ~row1
+        ],
+        device,
+    )
+
+
+def _ex_aig_eval(device):
+    elem = torch.from_numpy(_elem_words(5)[:2].view(np.int32)).to(device)  # two vars' tables
+    return _registry.KernelExample(
+        fn=eval_mega,
+        args=(
+            _ex_waves(device),
+            _i32([-1, 0, 1, -1, -1, -1, -1, -1], device),  # pin_rows
+            elem,
+            _i32([6 << 1, (5 << 1) | 1], device),  # rootp
+            _i32([[0, 2, 0, 8, 0, 2]], device),  # meta
+        ),
+        kwargs=dict(cw=1, max_rows=8),
+    )
+
+
+def _ex_aig_sig(device):
+    vals0 = torch.zeros((8, 2), dtype=torch.int32)
+    vals0[1:3] = torch.randint(-(2**31), 2**31, (2, 2), generator=torch.Generator().manual_seed(0),
+                               dtype=torch.int32)  # the PI rows
+    return _registry.KernelExample(
+        fn=sig_eval,
+        args=(_ex_waves(device), vals0.to(device), _i32([[0, 2, 0, 8]], device)),
+        kwargs=dict(max_rows=8),
+    )
+
+
+_registry.register_kernel("aig_eval", __name__, _ex_aig_eval, x64=False, launches=("eval_mega",))
+_registry.register_kernel("aig_sig", __name__, _ex_aig_sig, x64=False, launches=("sig_eval",))

@@ -18,7 +18,8 @@ placement (with linear-scan row reuse).
 
 On a CUDA tensor it launches the hand-written kernel
 (``csrc/cim_logic.cu``); on a CPU tensor it runs the plain torch version
-(`ref.cim_reference`).  ``LAUNCHES`` counts kernel launches.
+(`ref.cim_reference`).  ``LAUNCHES`` counts kernel launches: a view of
+the registry's one counter (`analysis.registry.LAUNCH_COUNTS`).
 """
 
 from __future__ import annotations
@@ -29,11 +30,14 @@ import functools
 import numpy as np
 import torch
 
+from ..analysis import registry as _registry
 from . import build
 from .ref import cim_reference
 
+# repro: kernel-module — host syncs in device-adjacent code are annotated
 #: Kernel launches (plain-version calls do not count).
-LAUNCHES = {"cim": 0}
+LAUNCHES = _registry.CounterView(("cim",))
+_registry.register_counter("cim", __name__)
 
 LANE = 128
 SUBLANE = 8
@@ -113,7 +117,7 @@ def cim_call(
     _validate(instrs, pi_planes, n_rows, n_gates, n_pos, block_words)
     dev = pi_planes.device
     if dev.type == "cpu":
-        check_rows(instrs.numpy(), pi_planes.shape[0])
+        check_rows(instrs.numpy(), pi_planes.shape[0])  # repro: host-boundary — CPU operands
         return cim_plain(instrs, pi_planes, n_gates, n_pos)
     if dev.type != "cuda":
         raise ValueError(f"cim_call: unsupported device {dev}")
@@ -135,3 +139,30 @@ def cim_call(
     build.check(rc, "k2_cim")
     LAUNCHES["cim"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel registration (static analyzer)
+# ---------------------------------------------------------------------------
+
+
+def _ex_cim(device):
+    """A 4-bit ripple adder's netlist over 128 words of test vectors:
+    `cim_call`'s operands as `ops.cim_evaluate` builds them."""
+    from ..core.circuits import gen_adder
+    from .ops import cim_planes, compile_netlist
+
+    cc = compile_netlist(gen_adder(4).to_gate_netlist())
+    rng = np.random.default_rng(0)
+    pi_words = rng.integers(-(2**31), 2**31, size=(len(cc.pi_rows), 128)).astype(np.int32)
+    planes, bw = cim_planes(cc, pi_words, block_words=128)
+    return _registry.KernelExample(
+        fn=cim_call,
+        args=(torch.from_numpy(cc.instrs).to(device), torch.from_numpy(planes).to(device)),
+        kwargs=dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw),
+    )
+
+
+# The reference registers K2's counter only; the port also registers a
+# builder under the counter's name, so the graph layer launches K2.
+_registry.register_kernel("cim", __name__, _ex_cim, x64=False, launches=("cim",))

@@ -26,11 +26,13 @@ without a card unless ``device="cpu"`` is passed::
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import registry as _registry
 from repro_torch.configs import get_config
 from repro_torch.core.workloads import (LoweredModel, SystemResult,
                                         conservation_report, evaluate_lowered,
@@ -38,6 +40,9 @@ from repro_torch.core.workloads import (LoweredModel, SystemResult,
 from repro_torch.device import resolve_device
 from repro_torch.launch.roofline import HBM_BW, LINK_BW, PEAK_FLOPS
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
+
+
+# repro: kernel-module — host syncs in device-adjacent code are annotated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +129,22 @@ def token_cost_from_dryrun(record: dict, shape: ShapeConfig) -> dict:
 BOTTLENECKS = ("compute", "memory", "collective")
 
 
+def _roofline_core(flops, hbm_bytes, link_bytes, peak_flops, hbm_bw, link_bw) -> dict:
+    """The roofline terms of a sweep: every operand an fp64 tensor on one
+    device (the costs and the peak 0-d, the bandwidths the sweep's
+    shape).  A zero link bandwidth means one chip (no collective time);
+    the bottleneck is the argmax over (compute, memory, collective), the
+    first winning ties."""
+    compute = flops / peak_flops
+    memory = hbm_bytes / hbm_bw
+    coll = torch.where(link_bw > 0, link_bytes / link_bw.clamp_min(1.0), 0.0)
+    compute, memory, coll = torch.broadcast_tensors(compute, memory, coll)
+    token_s = torch.maximum(torch.maximum(compute, memory), coll)
+    bottleneck = torch.argmax(torch.stack([compute, memory, coll], dim=-1), dim=-1)
+    return dict(compute_s=compute, memory_s=memory, collective_s=coll,
+                token_s=token_s, bottleneck=bottleneck)
+
+
 def sweep_roofline(cost: dict,
                    hbm_bw: "float | Sequence[float]" = HBM_BW,
                    link_bw: "float | Sequence[float]" = LINK_BW,
@@ -133,31 +154,20 @@ def sweep_roofline(cost: dict,
 
     ``hbm_bw`` / ``link_bw`` may be scalars or 1-D sweeps (broadcast
     against each other); the returned numpy arrays have the broadcast
-    shape.  A zero link bandwidth means one chip (no collective time);
-    the bottleneck is the argmax over (compute, memory, collective), the
-    first winning ties.
+    shape (`_roofline_core` on ``device``).
     """
     dev = resolve_device(device)
-    hbm = np.atleast_1d(np.asarray(hbm_bw, np.float64))
-    link = np.atleast_1d(np.asarray(link_bw, np.float64))
+    hbm = np.atleast_1d(np.asarray(hbm_bw, np.float64))  # repro: host-boundary
+    link = np.atleast_1d(np.asarray(link_bw, np.float64))  # repro: host-boundary
     hbm, link = np.broadcast_arrays(hbm, link)
 
     def f64(x):
         return torch.as_tensor(x, dtype=torch.float64, device=dev)
 
-    hbm_t, link_t = f64(hbm), f64(link)
-    compute = f64(cost["flops"]) / f64(peak_flops)
-    memory = f64(cost["hbm_bytes"]) / hbm_t
-    coll = torch.where(link_t > 0,
-                       f64(cost["link_bytes"]) / torch.maximum(link_t, f64(1.0)),
-                       f64(0.0))
-    compute, memory, coll = torch.broadcast_tensors(compute, memory, coll)
-    token_s = torch.maximum(torch.maximum(compute, memory), coll)
-    bottleneck = torch.argmax(torch.stack([compute, memory, coll], dim=-1), dim=-1)
-    out = dict(compute_s=compute, memory_s=memory, collective_s=coll,
-               token_s=token_s, bottleneck=bottleneck)
+    out = _roofline_core(f64(cost["flops"]), f64(cost["hbm_bytes"]), f64(cost["link_bytes"]),
+                         f64(peak_flops), f64(hbm), f64(link))
     # sweep-shaped (small): materialize for callers
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out = {k: v.cpu().numpy() for k, v in out.items()}  # repro: host-boundary
     out["hbm_bw"] = hbm.copy()
     out["link_bw"] = link.copy()
     return out
@@ -176,12 +186,13 @@ def baseline_cost(cost: dict, accel: AcceleratorModel = DEFAULT_ACCEL,
         flops_per_token=cost["flops"],
         hbm_bytes_per_token=cost["hbm_bytes"],
         link_bytes_per_token=cost["link_bytes"],
+        # repro: host-boundary — the materialized sweep's first point
         latency_per_token_s=float(sweep["token_s"][0]),
-        energy_per_token_j=float(energy_j),
+        energy_per_token_j=float(energy_j),  # repro: host-boundary — a host scalar
         bottleneck=BOTTLENECKS[int(sweep["bottleneck"][0])],
-        compute_s=float(sweep["compute_s"][0]),
-        memory_s=float(sweep["memory_s"][0]),
-        collective_s=float(sweep["collective_s"][0]),
+        compute_s=float(sweep["compute_s"][0]),  # repro: host-boundary
+        memory_s=float(sweep["memory_s"][0]),  # repro: host-boundary
+        collective_s=float(sweep["collective_s"][0]),  # repro: host-boundary
     )
 
 
@@ -227,10 +238,10 @@ def compare_system(arch: str, shape_name: str = "decode_32k",
         baseline=base,
         energy_ratio_rcim_over_accel=(
             rcim.energy_per_token_j / base["energy_per_token_j"]
-            if base["energy_per_token_j"] else float("inf")),
+            if base["energy_per_token_j"] else math.inf),
         latency_ratio_rcim_over_accel=(
             rcim.latency_per_token_s / base["latency_per_token_s"]
-            if base["latency_per_token_s"] else float("inf")),
+            if base["latency_per_token_s"] else math.inf),
     )
     if hbm_bw_sweep is not None or link_bw_sweep is not None:
         sweep = sweep_roofline(
@@ -239,8 +250,21 @@ def compare_system(arch: str, shape_name: str = "decode_32k",
             link_bw=link_bw_sweep if link_bw_sweep is not None else accel.link_bw,
             peak_flops=accel.peak_flops, device=dev,
         )
-        rec["bw_sweep"] = {k: v.tolist() for k, v in sweep.items()}
+        rec["bw_sweep"] = {k: v.tolist() for k, v in sweep.items()}  # repro: host-boundary
     return rec
+
+
+def _ex_roofline_sweep(device):
+    def f64(x):
+        return torch.tensor(x, dtype=torch.float64, device=device)
+
+    bw = f64([1.0e11, 2.0e11])
+    return _registry.KernelExample(
+        fn=_roofline_core, args=(f64(1.0e12), f64(1.0e9), f64(0.0), f64(1.0e15), bw, bw)
+    )
+
+
+_registry.register_kernel("roofline_sweep", __name__, _ex_roofline_sweep)
 
 
 def main(argv: "Sequence[str] | None" = None) -> dict:

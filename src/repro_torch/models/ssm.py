@@ -102,6 +102,48 @@ def _ssd_chunked(x, dt, a, b, c, chunk: int):
     return torch.cat(ys, dim=1), state
 
 
+def _ssd_placements(pl) -> tuple:
+    """Per mesh dim, the placements `_ssd_by_shard` runs the scan at, from
+    ``x``'s placement there: (x, dt, a, b, c) in, their grads, and (y,
+    state) out.  An operand replicated where x is sharded is read by every
+    shard, so each device's grad of it is a partial sum over its rows,
+    heads or head dims: ``Partial``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    r, s = Replicate(), Partial()
+    if pl == Shard(0):  # batch rows scan independently
+        return (pl, pl, r, pl, pl), (pl, pl, s, pl, pl), (pl, pl)
+    if pl == Shard(2):  # so do heads; b and c are shared by every head
+        return (pl, pl, Shard(0), r, r), (pl, pl, Shard(0), s, s), (pl, Shard(1))
+    if pl == Shard(3):  # and head dims; dt, a, b and c are shared
+        return (pl, r, r, r, r), (pl, s, s, s, s), (pl, Shard(2))
+    return (r,) * 5, (r,) * 5, (r, r)  # the sequence (or a partial sum) is gathered
+
+
+def _ssd_by_shard(x, dt, a, b, c, chunk: int):
+    """`_ssd_chunked`; on DTensors, run on each device's shard.
+
+    The scan is independent across batch rows, heads and head dims, so a
+    device that holds a shard of those scans it alone (shard_map-style,
+    through `local_map`, as `layers._attend` does), as the reference's
+    partitioned HLO does.  DTensor itself cannot shard the scan on every
+    torch the port meets: torch 2.11's view rules refuse to flatten the
+    batch and head dims together when both are sharded, which the
+    intra-chunk einsum's backward does.  The shards are even (`spec_for`
+    shards only a dim its mesh axes divide), as `local_map`'s outputs
+    assume.  Plain tensors go straight to `_ssd_chunked`."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return _ssd_chunked(x, dt, a, b, c, chunk)
+    from torch.distributed.tensor.experimental import local_map
+
+    ins, grads, outs = zip(*(_ssd_placements(pl) for pl in x.placements))
+    return local_map(_ssd_chunked, out_placements=tuple(zip(*outs)), in_placements=tuple(zip(*ins)),
+                     in_grad_placements=tuple(zip(*grads)), redistribute_inputs=True,
+                     )(x, dt, a, b, c, chunk=chunk)
+
+
 def mamba2_forward(p, x, cfg, chunk: int | None = None):
     """Forward / prefill.  Returns (out, dict(conv=..., state=...))."""
     bsz, s, d = x.shape
@@ -122,8 +164,8 @@ def mamba2_forward(p, x, cfg, chunk: int | None = None):
     a = -torch.exp(p["a_log"].float())  # (H,) negative
     xh = xs.reshape(bsz, s, nh, hd).float()
 
-    y, state = _ssd_chunked(xh, dt, a, b_.float(), c_.float(),
-                            chunk=min(chunk or cfg.ssm_chunk, s))
+    y, state = _ssd_by_shard(xh, dt, a, b_.float(), c_.float(),
+                             chunk=min(chunk or cfg.ssm_chunk, s))
     y = y + xh * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)

@@ -225,3 +225,53 @@ def tree_specs(mesh, params_logical, shapes, rules):
     if isinstance(params_logical, Mapping):
         return {k: tree_specs(mesh, v, shapes[k], rules) for k, v in params_logical.items()}
     return [tree_specs(mesh, v, s, rules) for v, s in zip(params_logical, shapes)]
+
+
+def _register_rules() -> None:
+    """Sharding rules DTensor lacks on the path of a train step.
+
+    * ``aten.softplus_backward``: DTensor has a rule for ``softplus`` but
+      none for its backward, so the recurrent blocks' train step
+      (``F.softplus`` in `models.ssm`) could not be traced on a mesh.  The
+      op is pointwise in ``grad_output`` and ``self`` (``beta`` and
+      ``threshold`` are scalars), so it takes the strategies DTensor gives
+      ``softplus``: both operands replicated, or both sharded on the same
+      dim.
+    * ``aten.constant_pad_nd``: torch 2.11's rule offers one ``Replicate``
+      placement whatever the mesh, which its redistribute cannot reach on
+      a mesh of two or more dims (the recurrent blocks' causal conv pads
+      its input).  Padding is local on every dim it does not pad, so the
+      op takes ``Replicate``, or ``Shard(d)`` on an unpadded dim ``d``.
+
+    ``Partial`` is offered by neither: ``softplus_backward`` is not linear
+    in ``self``, and a pad with a non-zero value is not linear either."""
+    try:
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import register_sharding
+    except ImportError as e:
+        raise ImportError(
+            "parallel.sharding needs torch.distributed.tensor.experimental."
+            "register_sharding to give aten.softplus_backward and "
+            "aten.constant_pad_nd their sharding rules") from e
+    import torch
+
+    aten = torch.ops.aten
+
+    @register_sharding(aten.softplus_backward.default)
+    def _softplus_backward(grad_output, self, beta, threshold):
+        out = [([Replicate()], [Replicate(), Replicate(), None, None])]
+        for d in range(self.ndim):
+            out.append(([Shard(d)], [Shard(d), Shard(d), None, None]))
+        return out
+
+    @register_sharding(aten.constant_pad_nd.default)
+    def _constant_pad_nd(self, pad, value=0):
+        padded = {self.ndim - 1 - i // 2 for i, n in enumerate(pad) if n}
+        out = [([Replicate()], [Replicate(), None, None])]
+        for d in range(self.ndim):
+            if d not in padded:
+                out.append(([Shard(d)], [Shard(d), None, None]))
+        return out
+
+
+_register_rules()

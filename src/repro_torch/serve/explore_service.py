@@ -110,6 +110,8 @@ from ..device import resolve_device
 from ..kernels.build import KernelError
 from ..runtime import faults
 
+# repro: kernel-module — the service handles device-resident grids; all
+# host materializations must be annotated boundary crossings
 
 # ---------------------------------------------------------------------------
 # Request / response schema
@@ -313,7 +315,7 @@ class ExplorationService:
         if grid_cache_size < 1:
             raise ValueError("grid_cache_size must be >= 1")
         self._topos = TopologyTable.from_topologies(sram_list)
-        self._total_kb = np.array(
+        self._total_kb = np.array(  # repro: host-boundary — host topology table
             [t.total_kb for t in self._topos.topologies], dtype=np.float64
         )
         self._recipes = (
@@ -763,7 +765,7 @@ class ExplorationService:
             energy = row._raw("energy_nj").reshape(-1, n)[-n_variants:]
             latency = row._raw("latency_ns").reshape(-1, n)[-n_variants:]
             # model-free capacity mask: (1, N) bools, cached on the host
-            fits = row._raw("fits").reshape(1, n).cpu().numpy()
+            fits = row._raw("fits").reshape(1, n).cpu().numpy()  # repro: host-boundary
             self._grids[(fp, model_key)] = _GridEntry(
                 row=row,
                 energy=energy,
@@ -906,23 +908,24 @@ class ExplorationService:
         # Device gathers: (V,) vectors are the only transfers here.
         idx_t = torch.as_tensor(idx, dtype=torch.int64, device=entry.energy.device)
         winner_energy = (
+            # repro: host-boundary — the (V,) winners' energies
             torch.gather(entry.energy, -1, idx_t[:, None])[:, 0]
             .cpu().numpy().astype(float)
         )
         nominal_fits = bool(entry.fits[0, int(idx[0])])
         ok = np.full(len(idx), nominal_fits)
         if r.max_latency_ns is not None:
-            lat_nom = entry.latency[:, int(idx[0])].cpu().numpy()
+            lat_nom = entry.latency[:, int(idx[0])].cpu().numpy()  # repro: host-boundary
             ok &= lat_nom <= r.max_latency_ns
         return VariationSummary(
             n_variants=len(idx),
             winners=winners,
             winner_share=share,
             best_yield=best_yield,
-            latency_yield=float(np.mean(ok)),
+            latency_yield=float(np.mean(ok)),  # repro: host-boundary
             winner_energy_nj=winner_energy,
             energy_quantiles={
-                q: float(np.quantile(winner_energy, q))
+                q: float(np.quantile(winner_energy, q))  # repro: host-boundary
                 for q in ENERGY_QUANTILES
             },
         )

@@ -604,3 +604,69 @@ def test_dryrun_argument_bytes_match_the_card(cuda_device, tmp_path, monkeypatch
     slack = sum(512 if n <= 1 << 20 else 2 << 20 for n in sizes)
     assert abs(real - est) <= slack, (est, real, slack)
     assert rec["hbm_per_device_gb"] * 2**30 >= est - 2**30 * 5e-4  # rounded to 1e-3 GB
+
+
+# ---------------------------------------------------------------------------
+# the device-discipline analyzer on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_graph_lint_on_card(cuda_device):
+    """Every registered kernel runs on the card with no finding, each hand
+    kernel's builder launches it (no fallback to the plain version), and
+    every output equals the same builder's on the CPU (bits, fp64 to
+    1e-12)."""
+    from repro_torch.analysis import graph_lint, registry
+
+    launched = {}
+    for spec in registry.kernel_specs():
+        run = graph_lint.run_kernel(spec, cuda_device)
+        assert graph_lint.findings_of(run) == [], spec.name
+        launched.update(run.launches)
+        cpu = graph_lint.run_kernel(spec, "cpu")
+        assert graph_lint.same_outputs(run.output, cpu.output), spec.name
+    assert launched == {"eval_mega": 1, "sig_eval": 1, "cim": 1}
+
+
+@pytest.mark.cuda
+def test_lint_cli_on_card(cuda_device):
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH="src")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis.lint", "--device", "cuda"],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("0 new finding(s), 0 baselined, 0 total")
+
+
+@pytest.mark.cuda
+def test_softplus_backward_rule_on_a_card_dtensor(cuda_device):
+    """`parallel.sharding`'s rule on a one-rank CUDA mesh: the op keeps
+    ``Shard(0)`` and equals the plain op, directly and through autograd."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.parallel import sharding  # noqa: F401  (registers the rule)
+
+    if dist.is_initialized():
+        pytest.skip("a default process group is up already")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", [0])
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.normal(scale=10.0, size=(8, 16))).to(cuda_device)
+        g = torch.from_numpy(rng.normal(size=(8, 16))).to(cuda_device)
+        want = torch.ops.aten.softplus_backward(g, x, 1.0, 20.0)
+        dx, dg = (DTensor.from_local(t, mesh, (Shard(0),)) for t in (x, g))
+        out = torch.ops.aten.softplus_backward(dg, dx, 1.0, 20.0)
+        assert out.placements == (Shard(0),) and torch.equal(out.to_local(), want)
+        leaf = dx.detach().requires_grad_()
+        F.softplus(leaf).backward(dg)
+        assert torch.equal(leaf.grad.to_local(), want)
+    finally:
+        dist.destroy_process_group()

@@ -237,6 +237,144 @@ def test_production_meshes(fake_group):
     assert t.to_local().shape == (2, 2) and t.shape == (64, 32)
 
 
+@pytest.mark.parametrize("placements", [(Shard(0), Shard(1)), (Replicate(), Replicate()),
+                                        (Replicate(), Shard(0))])
+def test_softplus_backward_rule_on_the_fake_group(fake_group, placements):
+    """`aten.softplus_backward` on a sharded DTensor keeps the placements
+    and, stitched over every rank's shard, equals the plain op on the full
+    tensor bit for bit (fp64).  The fake group runs rank 0 only, so each
+    shard is put in turn as rank 0's local tensor: a pointwise op reads
+    nothing of the mesh coordinate."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4), mesh_dim_names=("data", "model"))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(scale=10.0, size=(8, 16)))  # past the threshold too
+    grad = torch.from_numpy(rng.normal(size=(8, 16)))
+    want = torch.ops.aten.softplus_backward(grad, x, 1.0, 20.0)
+    splits = [1, 1]  # shards per tensor dim
+    for p, n in zip(placements, mesh.shape):
+        if isinstance(p, Shard):
+            splits[p.dim] *= n
+    rows = []
+    for xr, gr in zip(x.chunk(splits[0], 0), grad.chunk(splits[0], 0)):
+        cols = []
+        for xs, gs in zip(xr.chunk(splits[1], 1), gr.chunk(splits[1], 1)):
+            dx, dg = (DTensor.from_local(t.contiguous(), mesh, placements, run_check=False,
+                                         shape=x.shape, stride=x.stride()) for t in (xs, gs))
+            out = torch.ops.aten.softplus_backward(dg, dx, 1.0, 20.0)
+            assert out.placements == placements
+            cols.append(out.to_local())
+        rows.append(torch.cat(cols, 1))
+    assert torch.equal(torch.cat(rows, 0), want)
+
+
+@pytest.mark.parametrize("placements", [(Shard(0), Shard(2)), (Replicate(), Replicate()),
+                                        (Shard(2), Shard(1))])
+def test_constant_pad_nd_rule_on_the_fake_group(fake_group, placements):
+    """`aten.constant_pad_nd` (the causal conv's left pad of the sequence,
+    dim 1, with a non-zero value here) keeps a shard of an unpadded dim
+    and, stitched over every rank's shard, equals the plain op on the full
+    tensor bit for bit; a shard of the padded dim is gathered first, so
+    the output is replicated there.  Ranks as in the softplus test."""
+    import itertools
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4), mesh_dim_names=("data", "model"))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(4, 8, 16)))
+    pad = (0, 0, 3, 0)
+    want = torch.ops.aten.constant_pad_nd(x, pad, 0.5)
+    padded = any(p == Shard(1) for p in placements)
+    kept = tuple(Replicate() if p == Shard(1) else p for p in placements)
+    splits = [1, 1, 1]  # shards per tensor dim
+    for p, n in zip(placements, mesh.shape):
+        if isinstance(p, Shard):
+            splits[p.dim] *= n
+    for pos in itertools.product(*(range(n) for n in splits)):
+        local = x
+        for d, (i, n) in enumerate(zip(pos, splits)):
+            local = local.chunk(n, d)[i]
+        dx = DTensor.from_local(local.contiguous(), mesh, placements, run_check=False,
+                                shape=x.shape, stride=x.stride())
+        out = torch.ops.aten.constant_pad_nd(dx, pad, 0.5)
+        assert out.placements == kept and out.shape == want.shape
+        if not padded:  # the fake group's gather fills no values to compare
+            part = want
+            for d, (i, n) in enumerate(zip(pos, splits)):
+                part = part.chunk(n, d)[i]
+            assert torch.equal(out.to_local(), part)
+
+
+@pytest.mark.parametrize("placements", [(Shard(0), Shard(2)), (Shard(0), Replicate()),
+                                        (Replicate(), Shard(3)), (Replicate(), Replicate())])
+def test_ssd_scan_by_shard_on_the_fake_group(fake_group, placements):
+    """`models.ssm._ssd_by_shard` on DTensors runs `_ssd_chunked` on each
+    device's shard and places y and the state by x's placements; stitched
+    over every rank's shard (each put in turn as rank 0's, as in the
+    softplus test) it equals the scan of the full tensors (fp32, 1e-6).
+    Backward: each operand's grad is sharded as the operand is, or
+    ``Partial`` where the operand is replicated and x is sharded, and the
+    rank-local grads, summed into their slices over every rank, equal the
+    full tensors' grads (fp32, 1e-5: partial sums add in another order)."""
+    import itertools
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.models import ssm
+
+    mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4), mesh_dim_names=("data", "model"))
+    rng = np.random.default_rng(0)
+    x, b, c = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+               for sh in ((4, 16, 8, 4), (4, 16, 3), (4, 16, 3)))
+    dt = torch.from_numpy(rng.uniform(0.1, 1.0, (4, 16, 8)).astype(np.float32))
+    a = -torch.from_numpy(rng.uniform(0.5, 2.0, 8).astype(np.float32))
+    gy, gs = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+              for sh in ((4, 16, 8, 4), (4, 8, 4, 3)))
+    full = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    want_y, want_state = ssm._ssd_chunked(*full, chunk=8)
+    ((want_y * gy).sum() + (want_state * gs).sum()).backward()
+    want_grads = [t.grad for t in full]
+    want_y, want_state = want_y.detach(), want_state.detach()
+    ins, grads, outs = zip(*(ssm._ssd_placements(pl) for pl in placements))
+    ways = {0: 1, 2: 1, 3: 1}  # shards of x's batch, head and head-dim axes
+    for pl, m in zip(placements, mesh.shape):
+        if isinstance(pl, Shard):
+            ways[pl.dim] *= m
+    #: each operand's axes as x's axes (None: not split by the scan)
+    axes = ((0, None, 2, 3), (0, None, 2), (2,), (0, None, None), (0, None, None))
+    got_grads = [torch.zeros_like(t) for t in want_grads]
+    for pos in itertools.product(*(range(ways[d]) for d in (0, 2, 3))):
+        at = dict(zip((0, 2, 3), pos))
+
+        def part(t, dims):
+            for axis, d in enumerate(dims):
+                if d is not None:
+                    t = t.chunk(ways[d], axis)[at[d]]
+            return t
+
+        dts = [DTensor.from_local(part(t, ax).contiguous(), mesh, pls, run_check=False,
+                                  shape=t.shape, stride=t.stride()).requires_grad_()
+               for t, ax, pls in zip((x, dt, a, b, c), axes, zip(*ins))]
+        y, state = ssm._ssd_by_shard(*dts, chunk=8)
+        assert y.placements == tuple(o[0] for o in outs)
+        assert state.placements == tuple(o[1] for o in outs)
+        assert (y.shape, state.shape) == (want_y.shape, want_state.shape)
+        # fp32 einsums over fewer heads may block their sums differently
+        torch.testing.assert_close(y.to_local(), part(want_y, (0, None, 2, 3)),
+                                   rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(state.to_local(), part(want_state, (0, 2, 3, None)),
+                                   rtol=1e-6, atol=1e-6)
+        ((y.to_local() * part(gy, (0, None, 2, 3))).sum()
+         + (state.to_local() * part(gs, (0, 2, 3, None))).sum()).backward()
+        for d, ax, pls, got in zip(dts, axes, zip(*grads), got_grads):
+            assert d.grad.placements == pls
+            part(got, ax).add_(d.grad.to_local())
+    for got, want in zip(got_grads, want_grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the cost reader
 # ---------------------------------------------------------------------------
@@ -344,28 +482,13 @@ def test_flops_on_a_one_device_mesh_equal_flop_counter(fake_group, smoke_shapes,
 # ---------------------------------------------------------------------------
 
 
-def _chain(e: BaseException) -> str:
-    out = []
-    while e is not None:
-        out.append(f"{type(e).__name__}: {e}")
-        e = e.__cause__ or e.__context__
-    return "\n".join(out)
-
-
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_run_cell_records_and_cache(fake_group, smoke_shapes, tmp_path, monkeypatch, arch):
     cfg = PCF.smoke_config(arch)
     recs = {}
     for shape in SMOKE_SHAPES:
-        if shape == "train_4k" and cfg.family in ("ssm", "hybrid"):
-            # the recurrent blocks' softplus has no DTensor sharding rule for
-            # its backward: the cell fails naming the op, not silently
-            with pytest.raises(Exception) as err:
-                PD.run_cell(arch, shape, False, str(tmp_path), mesh_shape=(2, 4),
-                            overrides=dict(cfg=cfg))
-            assert "softplus_backward" in _chain(err.value)
-            assert not list(tmp_path.glob(f"{arch}__{shape}*"))
-            continue
+        # the recurrent families' train cells go through softplus_backward,
+        # which takes the rule `parallel.sharding` registers
         rec = PD.run_cell(arch, shape, False, str(tmp_path), mesh_shape=(2, 4), tag="t",
                           overrides=dict(cfg=cfg, q_chunk=16, kv_chunk=16))
         assert set(rec) == RECORD_KEYS and set(rec["memory"]) == MEMORY_KEYS, shape
