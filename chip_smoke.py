@@ -33,7 +33,9 @@ and then runs these phases, failing (non-zero exit) on any error:
    equal the ``fused=False`` host-selection path.
 4. K2 against its plain torch version on the card, per winner netlist,
    with its register file in shared memory (as the main path runs it)
-   and forced into global memory.
+   and forced into global memory; per netlist its program
+   (``ops.cim_program``: levels, widest level, renamed rows, shared
+   bytes), ms per launch, the plain version's ms and the bound.
 5. The exploration service (``ExplorationService(device="cuda")``) over
    ``adder``, ``max`` and ``log2`` at the default scale, all 65 recipes
    and the 12 topologies, on a fresh on-disk cache: 3 cold requests in
@@ -74,8 +76,8 @@ and then runs these phases, failing (non-zero exit) on any error:
    in both modes and both disciplines held the same way; the three
    primitive tiles (mac8, add16, max8) through K2 at 2**16 random
    operands, equal to their integer arithmetic, and K2 bit-equal to its
-   plain version with either register file; one cell's CLI run
-   (``system.main``), its record equal to the phase's.
+   plain version with either register file, printed as in phase 4; one
+   cell's CLI run (``system.main``), its record equal to the phase's.
 10. The LM serving path of the dense family (``repro_torch.models``,
    ``serve.engine``, ``launch.serve llm``), random weights from seed 0,
    TF32 off: (a) minicpm-2b at published size in bf16 served as
@@ -176,7 +178,10 @@ and then runs these phases, failing (non-zero exit) on any error:
    host filter's.
 
 Kernel times are device times of back-to-back launches; ``bound_ms``
-counts each byte a call must move once, over the card's HBM rate.
+counts each byte a call must move once, over the card's HBM rate, and
+for K2 is the larger of that and its int32 logic ops (one a gate and
+word) over the card's integer rate (132 SMs x 64 int32 lanes x the SM
+clock ``nvidia-smi`` reports as ``clocks.max.sm``).
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
 build seconds, per-phase times (the launches of phases 5-14 on lines of
@@ -287,6 +292,79 @@ def mega_bytes(batch, k_max: int, w: int) -> int:
 
 #: Largest |kernel - plain| seen per kernel over every comparison made.
 MAX_ERR = {"eval_mega": 0, "sig_eval": 0, "cim": 0}
+
+
+_SM_CLOCK_HZ: list[float] = []
+
+
+def int32_ops_per_s() -> float:
+    """The card's int32 rate: 132 SMs x 64 int32 lanes x the SM clock
+    (``nvidia-smi``'s ``clocks.max.sm``), read once."""
+    if not _SM_CLOCK_HZ:
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.split()[0]
+        _SM_CLOCK_HZ.append(float(mhz) * 1e6)
+    return 132 * 64 * _SM_CLOCK_HZ[0]
+
+
+def k2_operands(dev, net, bits):
+    """(cc, program, positional operands, keywords) of one `cim_call`, as
+    ``ops.cim_evaluate`` builds them (the stream stays on the host)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    cc = ops.compile_netlist(net)
+    program = ops.cim_program(cc)
+    planes, bw = ops.cim_planes(cc, ref.pack_vectors(bits))
+    args = (torch.from_numpy(cc.instrs), torch.from_numpy(planes).to(dev))
+    kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw,
+              program=program.to(dev))
+    return cc, program, args, kw
+
+
+def k2_bound(program, kw, planes) -> dict:
+    """K2's least time for one call: the program in, its input rows in and
+    the PO rows out over the HBM rate, against one int32 logic op per gate
+    and word over the integer rate; the larger bounds it."""
+    n_words = planes.shape[1]
+    moved = nbytes(kw["program"].code) + (program.n_in + program.n_pos) * n_words * 4
+    ops_ = program.n_gates * n_words
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_ / int32_ops_per_s() * 1e3
+    return dict(bytes=moved, ops=ops_, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def k2_check(name: str, cc, args, kw):
+    """K2 against `cim_plain` with both register files, and the program's
+    plain executor against it."""
+    import torch
+    from repro_torch.kernels import cim_logic as K
+
+    want = K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos)
+    same("cim", K.cim_call(*args, **kw), want, f"K2 on {name}")
+    with global_memory(K):
+        same("cim", K.cim_call(*args, **kw), want, f"K2 (global register file) on {name}")
+    check(torch.equal(K.program_plain(kw["program"], args[1]), want),
+          f"{name}: program_plain != cim_plain")
+
+
+def k2_line(name: str, cc, program, bound: dict, ms: float, glob_ms: float,
+            plain_ms: float) -> str:
+    from repro_torch.kernels import cim_logic as K
+
+    shared = K._k2().k2_shared_bytes(program.n_rows, K.CHUNK_SLOTS)
+    return (f"  {name}: n_gates {cc.n_gates}, levels (depth) {program.n_levels}, widest "
+            f"{program.widest}, renamed rows {program.n_rows} (stream {cc.n_rows_padded}), "
+            f"shared {shared} B; K2 {ms:.4f} ms/launch (global register "
+            f"file {glob_ms:.4f} ms; plain {plain_ms:.3f} ms); bound {bound['bound_ms']:.6f} ms "
+            f"by {bound['bound_by']} (bytes {bound['bytes_ms']:.6f} ms for {bound['bytes']} B, "
+            f"int32 ops {bound['ops_ms']:.6f} ms for {bound['ops']}); "
+            f"{ms / bound['bound_ms']:.0f}x the bound, "
+            f"{ms * 1e3 / max(program.n_levels, 1):.3f} us a level")
 
 
 def same(key: str, got, want, msg: str) -> None:
@@ -643,7 +721,9 @@ def phase_main(dev, rng):
         f"({n_tt} calls), copies/syncs/unpacking {rest_s:.3f} s; transforms host "
         f"code {front_s - sim_s:.3f} s; K1 busy share {k1_s / front_s:.6f}"
     )
-    print(f"end check: K2 {k2_s:.4f} s on the card of {t3 - t2:.3f} s")
+    print(f"end check: K2 {k2_s:.4f} s between events around each wrapper call (the "
+          f"wrapper's host work and the first call's library and module load included; "
+          f"phase 4 gives the launches' device time) of {t3 - t2:.3f} s")
     print(f"adder winner on K2: sums and carries correct for {N_VECTORS} random operands")
     for name, r in res.items():
         print("  table-I", json.dumps(r.table_row()))
@@ -728,48 +808,39 @@ def phase_sweep(dev, suite, cha):
 
 
 def phase_k2(dev, netlists, vectors):
-    import torch
     from repro_torch.kernels import cim_logic as K
-    from repro_torch.kernels import ops, ref
 
-    calls = []
+    calls, bounds, print_lines = [], [], []
+    plain = 0.0
     for name, net in netlists.items():
-        cc = ops.compile_netlist(net)
-        planes, bw = ops.cim_planes(cc, ref.pack_vectors(vectors[name]))
-        args = (
-            torch.from_numpy(cc.instrs).to(dev),
-            torch.from_numpy(planes).to(dev),
-        )
-        kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw)
-        got = K.cim_call(*args, **kw)
-        want = K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos)
-        same("cim", got, want, f"K2 on {name}'s winner")
-        # The global-memory register file, which netlists too tall for
-        # shared memory take, held against the plain version as well.
+        cc, program, args, kw = k2_operands(dev, net, vectors[name])
+        k2_check(f"{name}'s winner", cc, args, kw)
+        bound = k2_bound(program, kw, args[1])
+        ms = cuda_ms(lambda: K.cim_call(*args, **kw), 10)
         with global_memory(K):
-            glob = K.cim_call(*args, **kw)
-        same("cim", glob, want, f"K2 (global register file) on {name}'s winner")
-        # instructions in; PI, const0 and const1 rows in; PO rows out
-        n_words = planes.shape[1]
-        moved = nbytes(args[0]) + (len(cc.pi_rows) + 2 + cc.n_pos) * n_words * 4
-        calls.append((args, kw, moved))
+            glob_ms = cuda_ms(lambda: K.cim_call(*args, **kw), 10)
+        plain_ms = cuda_ms(lambda: K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos), 1)
+        plain += plain_ms
+        print_lines.append(k2_line(name, cc, program, bound, ms, glob_ms, plain_ms))
+        calls.append((args, kw))
+        bounds.append(bound)
     n = len(calls)
-    ms = cuda_ms(lambda: [K.cim_call(*a, **kw) for a, kw, _ in calls], 10) / n
+    ms = cuda_ms(lambda: [K.cim_call(*a, **kw) for a, kw in calls], 10) / n
     with global_memory(K):
-        glob_ms = cuda_ms(lambda: [K.cim_call(*a, **kw) for a, kw, _ in calls], 10) / n
-    plain = cuda_ms(
-        lambda: [
-            K.cim_plain(*a, n_gates=kw["n_gates"], n_pos=kw["n_pos"]) for a, kw, _ in calls
-        ],
-        1,
-    ) / n
+        glob_ms = cuda_ms(lambda: [K.cim_call(*a, **kw) for a, kw in calls], 10) / n
+    bound_ms = sum(b["bound_ms"] for b in bounds) / n
     print(
         f"K2: {n} winner netlists at {N_VECTORS} vectors bit-equal to plain "
-        "(shared and global register file); "
+        "(shared and global register file; program_plain too); "
         f"{ms:.4f} ms/launch (global register file {glob_ms:.4f} ms; "
-        f"plain {plain:.3f} ms)"
+        f"plain {plain / n:.3f} ms; bound {bound_ms:.6f} ms); the end check's K2 on the "
+        f"card: {n} launches x {ms:.4f} ms = {n * ms:.4f} ms"
     )
-    return {"cim": dict(ms=ms, plain_ms=plain, bytes=sum(b for *_, b in calls) / n)}
+    for line in print_lines:
+        print(line)
+    by = "operations" if sum(b["ops_ms"] for b in bounds) > sum(b["bytes_ms"] for b in bounds) \
+        else "bytes"
+    return {"cim": dict(ms=ms, plain_ms=plain / n, bound_ms=bound_ms, bound_by=by)}
 
 
 # ---------------------------------------------------------------------------
@@ -1351,7 +1422,7 @@ def phase_system(dev, rng):
     from repro_torch import configs
     from repro_torch.core import workloads as W
     from repro_torch.kernels import cim_logic as K
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import system as S
     from repro_torch.models.config import SHAPES
 
@@ -1448,24 +1519,16 @@ def phase_system(dev, rng):
     check(launches["cim"] == len(TILE_WIDTHS), f"K2 launches in phase 9: {launches}")
     print(f"tiles on K2: mac8 (a*b + acc) mod 2^16, add16 (a + b) mod 2^16, max8 max(a, b) "
           f"exact at {N_VECTORS} random operands each; K2 launches {json.dumps(launches)}")
+    print(f"K2 on the tiles (int32 rate {int32_ops_per_s():.4e} ops/s):")
     for name, (net, bits) in k2.items():
-        cc = ops.compile_netlist(net)
-        planes, bw = ops.cim_planes(cc, ref.pack_vectors(bits))
-        args = (torch.from_numpy(cc.instrs).to(dev), torch.from_numpy(planes).to(dev))
-        kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw)
-        want = K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos)
-        same("cim", K.cim_call(*args, **kw), want, f"K2 on the {name} tile")
-        with global_memory(K):
-            same("cim", K.cim_call(*args, **kw), want, f"K2 (global register file) on {name}")
+        cc, program, args, kw = k2_operands(dev, net, bits)
+        k2_check(f"the {name} tile", cc, args, kw)
+        bound = k2_bound(program, kw, args[1])
         ms = cuda_ms(lambda: K.cim_call(*args, **kw), 20)
         with global_memory(K):
             glob_ms = cuda_ms(lambda: K.cim_call(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos), 1)
-        moved = nbytes(args[0]) + (len(cc.pi_rows) + 2 + cc.n_pos) * planes.shape[1] * 4
-        print(f"  {name}: n_gates {cc.n_gates}, n_rows_p {planes.shape[0]}, K2 {ms:.4f} "
-              f"ms/launch (global register file {glob_ms:.4f} ms; plain {plain_ms:.3f} ms; "
-              f"bound {moved / HBM_BYTES_PER_S * 1e3:.6f} ms for {moved} bytes); "
-              "bit-equal to plain")
+        print(k2_line(name, cc, program, bound, ms, glob_ms, plain_ms) + "; bit-equal to plain")
 
     # One cell's CLI run in process, on the card.
     arch, shape = "gemma3-27b", "decode_32k"
@@ -2627,8 +2690,8 @@ def main() -> int:
                 max_abs_err=MAX_ERR[key],
                 ms=t["ms"],
                 plain_ms=t["plain_ms"],
-                bound_ms=t["bytes"] / HBM_BYTES_PER_S * 1e3,
-                bound_by="bytes",
+                bound_ms=t.get("bound_ms", t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3),
+                bound_by=t.get("bound_by", "bytes"),
                 library_ms=None,
             )
         )

@@ -6,6 +6,10 @@ are assigned SRAM rows, and rows are recycled once their last consumer has
 executed (linear-scan liveness) — the software analogue of "operands can
 be placed flexibly ... optimizing the use of available SRAM resources".
 
+``cim_program`` schedules that stream for the CUDA kernel: its gates in
+levels over a renamed register file (`cim_logic.CimProgram`), built on
+the host once per compiled netlist.
+
 ``cim_evaluate`` is the user-facing entry point; it packs test vectors,
 pads shapes (8-row sublanes x ``block_words`` lanes), runs K2
 (`cim_logic.cim_call`) on ``device``, and unpacks outputs.
@@ -14,6 +18,7 @@ pads shapes (8-row sublanes x ``block_words`` lanes), runs K2
 from __future__ import annotations
 
 import dataclasses
+import heapq
 
 import numpy as np
 import torch
@@ -21,7 +26,9 @@ import torch
 from ..core.aig import GateNetlist
 from ..device import resolve_device
 from . import build, ref
-from .cim_logic import LANE, SUBLANE, _round_up, check_rows, cim_call
+from .cim_logic import (
+    BATCH, CHUNK_SLOTS, LANE, SUBLANE, CimProgram, _round_up, check_rows, cim_call,
+)
 
 
 @dataclasses.dataclass
@@ -115,6 +122,111 @@ def compile_netlist(net: GateNetlist, reuse_rows: bool = True) -> CompiledCim:
     )
 
 
+def cim_program(cc: CompiledCim) -> CimProgram:
+    """K2's program for ``cc``'s instruction stream, built once per
+    `CompiledCim` (kept on it) on the host, with ``code`` on the CPU.
+
+    Each reference row read before any gate writes it (PIs, the constant
+    rows, any row left at its planes value) is an input, loaded into a
+    renamed row.  Each gate goes one level past the latest of its two
+    operands (inputs are level 0; gates no PO depends on stay) and writes
+    a fresh renamed row; a row returns to the free list after the last
+    level that reads it, so only a later level's gate reuses it.  Within
+    a level no gate reads another's output, and all outputs differ.  The
+    POs are the renamed rows holding ``po_rows`` at the end of the
+    stream.  The program keeps a copy of the stream: `cim_call` refuses
+    it for another stream (``cc.instrs`` changed in place included)."""
+    prog = vars(cc).get("_cim_program")
+    if prog is None:
+        prog = _schedule(cc.instrs, cc.n_gates, cc.n_pos, cc.n_rows_padded)
+        vars(cc)["_cim_program"] = prog
+    return prog
+
+
+def _schedule(instrs: np.ndarray, n_gates: int, n_pos: int, n_rows_p: int) -> CimProgram:
+    # Nodes: gate i is node i; the planes row r read as an input is node
+    # n_gates + r.  `cur` maps each reference row to the node it holds.
+    cur: dict[int, int] = {}
+    srcs = np.empty((n_gates, 2), dtype=np.int64)
+    level = np.zeros(n_gates + n_rows_p, dtype=np.int64)
+    for i, (_, a, b, o) in enumerate(instrs[:n_gates].tolist()):
+        na, nb = cur.get(a, n_gates + a), cur.get(b, n_gates + b)
+        srcs[i] = na, nb
+        level[i] = 1 + max(level[na], level[nb])
+        cur[o] = i
+    po_nodes = [cur.get(r, n_gates + r) for r in instrs[n_gates : n_gates + n_pos, 3].tolist()]
+
+    # The last level that reads each node (POs: past the end; a gate
+    # nothing reads: its own level).  Inputs nothing reads are not loaded.
+    end = int(level[:n_gates].max(initial=0)) + 1
+    last_read = np.full(n_gates + n_rows_p, -1, dtype=np.int64)
+    last_read[:n_gates] = level[:n_gates]
+    np.maximum.at(last_read, srcs.ravel(), np.repeat(level[:n_gates], 2))
+    last_read[po_nodes] = end
+    inputs = np.flatnonzero(last_read[n_gates:] >= 0) + n_gates
+    n_levels = end - 1
+    by_level: list[list[int]] = [[] for _ in range(end)]
+    for i, lv in enumerate(level[:n_gates].tolist()):
+        by_level[lv].append(i)
+    frees_after: list[list[int]] = [[] for _ in range(end + 1)]
+    for node in [*range(n_gates), *inputs.tolist()]:
+        frees_after[last_read[node]].append(node)
+
+    # Renamed rows: inputs first, then each level's outputs from the rows
+    # freed by the levels before it.
+    row = {int(node): r for r, node in enumerate(inputs)}
+    free: list[int] = []
+    n_rows = len(inputs)
+    slot_rows, levels = [], [0]
+    for lv in range(1, n_levels + 1):
+        for node in frees_after[lv - 1]:
+            heapq.heappush(free, row[node])
+        gates = by_level[lv]
+        for i in gates:
+            if free:
+                row[i] = heapq.heappop(free)
+            else:
+                row[i], n_rows = n_rows, n_rows + 1
+        rows = [(-int(instrs[i, 0] == 1), row[srcs[i, 0]], row[srcs[i, 1]], row[i])
+                for i in gates]
+        rows += [None] * (-len(rows) % BATCH)
+        slot_rows += rows
+        levels.append(len(slot_rows))
+    pad = n_rows  # the pad row, written and read only by padding slots
+    slots = np.array([(0, pad, pad, pad) if r is None else r for r in slot_rows],
+                     dtype=np.int32).reshape(-1, 4)
+
+    # Steps (a level, or a CHUNK_SLOTS piece of a wider one) and chunks
+    # (runs of steps within CHUNK_SLOTS).
+    steps = [0]
+    for lo, hi in zip(levels[:-1], levels[1:]):
+        steps += list(range(lo + CHUNK_SLOTS, hi, CHUNK_SLOTS)) + [hi]
+    chunks, size = [0], 0
+    for s, (lo, hi) in enumerate(zip(steps[:-1], steps[1:])):
+        if size + hi - lo > CHUNK_SLOTS:
+            chunks.append(s)
+            size = 0
+        size += hi - lo
+    if len(steps) > 1:
+        chunks.append(len(steps) - 1)
+    code = np.concatenate([
+        slots.ravel(), steps, chunks, inputs - n_gates, [row[n] for n in po_nodes],
+    ]).astype(np.int32)
+    return CimProgram(
+        code=torch.from_numpy(code), n_slots=len(slots), n_steps=len(steps) - 1,
+        n_chunks=len(chunks) - 1, n_in=len(inputs), n_pos=n_pos, n_rows=n_rows + 1,
+        ref_rows=n_rows_p, n_gates=n_gates,
+        widest=max((len(g) for g in by_level), default=0),
+        levels=tuple(levels), stream=_frozen(instrs),
+    )
+
+
+def _frozen(a: np.ndarray) -> np.ndarray:
+    a = a.copy()
+    a.flags.writeable = False
+    return a
+
+
 def place_pi_planes(cc: CompiledCim, pi_words: np.ndarray, n_words: int) -> np.ndarray:
     """Scatter packed PI planes (n_pis, n_words) into the padded row layout,
     including the constant rows."""
@@ -169,12 +281,13 @@ def cim_evaluate(
     check_rows(cc.instrs, planes.shape[0])
     with build.device_faults("cim", dev):
         out = cim_call(
-            torch.from_numpy(cc.instrs).to(dev),
+            torch.from_numpy(cc.instrs),  # the host stream: checked, not read, on CUDA
             torch.from_numpy(planes).to(dev),
             n_rows=cc.n_rows,
             n_gates=cc.n_gates,
             n_pos=cc.n_pos,
             block_words=bw,
+            program=cim_program(cc).to(dev),
         ).cpu().numpy()[: cc.n_pos, :n_words]
     if packed:
         return out

@@ -13,6 +13,8 @@ one per kernel launch; the host checks refuse row indices outside the
 operands before upload.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from repro_torch.core import circuits as C
 from repro_torch.core import transforms as T
 from repro_torch.core.aig import Aig, lit
 from repro_torch.kernels import aig_sim as A
+from repro_torch.kernels import build
 from repro_torch.kernels import cim_logic as K
 from repro_torch.kernels import ops, ref
 
@@ -167,7 +170,8 @@ def test_k2_matches_plain_on_card(cuda_device, n_vec):
     cc = ops.compile_netlist(net)
     planes, bw = ops.cim_planes(cc, ref.pack_vectors(bits))
     args = (torch.from_numpy(cc.instrs).to(cuda_device), torch.from_numpy(planes).to(cuda_device))
-    kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw)
+    kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw,
+              program=ops.cim_program(cc).to(cuda_device))
     before = K.LAUNCHES["cim"]
     got = K.cim_call(*args, **kw)
     torch.cuda.synchronize()
@@ -193,9 +197,90 @@ def test_k2_global_register_file_matches_plain_on_card(cuda_device, n_vec, monke
     planes, bw = ops.cim_planes(cc, ref.pack_vectors(bits))
     args = (torch.from_numpy(cc.instrs).to(cuda_device), torch.from_numpy(planes).to(cuda_device))
     monkeypatch.setattr(K, "MAX_SHARED_BYTES", 0)
-    got = K.cim_call(*args, n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw)
+    got = K.cim_call(*args, n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw,
+                     program=ops.cim_program(cc).to(cuda_device))
     torch.cuda.synchronize()
     assert torch.equal(got, K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos))
+
+
+def k2_operands(net, bits, device):
+    """(cc, positional operands, keywords with the program) of `cim_call`."""
+    cc = ops.compile_netlist(net)
+    planes, bw = ops.cim_planes(cc, ref.pack_vectors(bits))
+    args = (torch.from_numpy(cc.instrs).to(device), torch.from_numpy(planes).to(device))
+    kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw,
+              program=ops.cim_program(cc).to(device))
+    return cc, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_space", ["shared", "global"])
+@pytest.mark.parametrize("n_vec", [45, 1 << 16])
+def test_k2_program_matches_both_plain_versions_on_mac8(cuda_device, n_vec, row_space,
+                                                        monkeypatch):
+    """The level-scheduled kernel on the mac8 tile (54 levels) equals the
+    reference stream's plain version and the program's, bit for bit, with
+    either register file."""
+    from repro_torch.core import workloads as W
+
+    rng = np.random.default_rng(11)
+    bits = rng.integers(0, 2, size=(32, n_vec), dtype=np.uint8)
+    cc, args, kw = k2_operands(W.primitive_aigs()["mac8"].to_gate_netlist(), bits, cuda_device)
+    assert kw["program"].n_levels == 54
+    if row_space == "global":
+        monkeypatch.setattr(K, "MAX_SHARED_BYTES", 0)
+    got = K.cim_call(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos))
+    assert torch.equal(got, K.program_plain(kw["program"], args[1]))
+
+
+@pytest.mark.cuda
+def test_k2_tall_renamed_file_takes_the_global_register_file(cuda_device):
+    """A level of 2,000 gates whose outputs all live to the last level:
+    the renamed file is taller than a block's shared memory holds, so the
+    wrapper hands the kernel the global register file."""
+    from repro_torch.core.aig import GateNetlist
+
+    n_pis, n_wide = 6, 2000
+    net = GateNetlist()
+    for _ in range(2 + n_pis):
+        net._new_signal()
+    net.pi_signals = list(range(2, 2 + n_pis))
+    wide = [net._emit("nor" if i % 3 else "nand", 2 + i % n_pis, 2 + (i * 7 + 1) % n_pis, 0)
+            for i in range(n_wide)]
+    net.po_signals = [net._emit("nand", wide[i], wide[n_wide - 1 - i], 1) for i in range(n_wide)]
+    rng = np.random.default_rng(12)
+    bits = rng.integers(0, 2, size=(n_pis, 3000), dtype=np.uint8)
+    cc, args, kw = k2_operands(net, bits, cuda_device)
+    program = kw["program"]
+    assert program.n_rows > n_wide
+    assert K._k2().k2_shared_bytes(program.n_rows, K.CHUNK_SLOTS) > K.MAX_SHARED_BYTES
+    got = K.cim_call(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos))
+
+
+@pytest.mark.cuda
+def test_k2_without_a_program_is_refused_on_card(cuda_device):
+    """The CUDA path runs a program or raises naming `ops.cim_program`:
+    no launch, no fallback to the plain version.  A program of another
+    stream with the same shape is refused against the host stream."""
+    rng = np.random.default_rng(13)
+    bits = rng.integers(0, 2, size=(8, 100), dtype=np.uint8)
+    cc, args, kw = k2_operands(C.gen_adder(4).to_gate_netlist(), bits, cuda_device)
+    kw.pop("program")
+    before = K.LAUNCHES["cim"]
+    with pytest.raises(build.OperandError, match="ops.cim_program"):
+        K.cim_call(*args, **kw)
+    with pytest.raises(build.OperandError, match="is on cpu"):
+        K.cim_call(*args, **kw, program=ops.cim_program(cc))
+    other = cc.instrs.copy()
+    other[0, 0] = 0 if other[0, 0] == 1 else 1  # another kind: same rows, gates, POs
+    foreign = ops.cim_program(dataclasses.replace(cc, instrs=other)).to(cuda_device)
+    with pytest.raises(build.OperandError, match="another instruction stream"):
+        K.cim_call(torch.from_numpy(cc.instrs), args[1], **kw, program=foreign)
+    assert K.LAUNCHES["cim"] == before
 
 
 @pytest.mark.cuda
@@ -316,10 +401,7 @@ def test_workload_tiles_on_k2(cuda_device, name, monkeypatch):
     assert K.LAUNCHES["cim"] == before + 1
     got = (out.astype(np.int64) << np.arange(out.shape[0])[:, None]).sum(axis=0)
     np.testing.assert_array_equal(got, want)
-    cc = ops.compile_netlist(net)
-    planes, bw = ops.cim_planes(cc, ref.pack_vectors(bits))
-    args = (torch.from_numpy(cc.instrs).to(cuda_device), torch.from_numpy(planes).to(cuda_device))
-    kw = dict(n_rows=cc.n_rows, n_gates=cc.n_gates, n_pos=cc.n_pos, block_words=bw)
+    cc, args, kw = k2_operands(net, bits, cuda_device)
     plain = K.cim_plain(*args, n_gates=cc.n_gates, n_pos=cc.n_pos)
     assert torch.equal(K.cim_call(*args, **kw), plain)
     monkeypatch.setattr(K, "MAX_SHARED_BYTES", 0)
