@@ -177,6 +177,22 @@ and then runs these phases, failing (non-zero exit) on any error:
    winner payload (the operands never cross), its winners equal to the
    host filter's.
 
+15. The tables and training on a host mesh: (a) ``batch.schedule_suite``
+   and ``schedule_batch`` on the card, both disciplines, over phase 2's
+   characterization (9 circuits x 65 recipes x 12 topologies): equal to
+   the CPU's, to ``mapping.schedule_stats`` in every cell and (list) to
+   phase 2's fused back half; ``table2_batch`` within ``rtol=1e-12`` of
+   ``sram.table2_metrics`` for the nominal model and phase 3's 1024
+   variants; ms a call; (b) ``python -m torch.distributed.run --standalone
+   --nproc-per-node 1 -m repro_torch.launch.train`` with phase 12 (d)'s
+   argv for 3 steps: minicpm-2b at published size with DTensor params on a
+   (1, 1) NCCL mesh, its losses and grad norms held to (d)'s first three
+   (phase 12's tolerances; bit-equality reported), ms a step and peak
+   memory (``--metrics-out``) and one step's kernels (profiled in this
+   process on a one-rank NCCL group) beside (d)'s; ``--model-parallel 2``
+   on the one card must exit non-zero with the launcher's `ValueError`.
+   Neither K1 nor K2 is launched.
+
 Kernel times are device times of back-to-back launches; ``bound_ms``
 counts each byte a call must move once, over the card's HBM rate, and
 for K2 is the larger of that and its int32 logic ops (one a gate and
@@ -184,7 +200,7 @@ word) over the card's integer rate (132 SMs x 64 int32 lanes x the SM
 clock ``nvidia-smi`` reports as ``clocks.max.sm``).
 
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
-build seconds, per-phase times (the launches of phases 5-14 on lines of
+build seconds, per-phase times (the launches of phases 5-15 on lines of
 their own), the script's wall time, a ``{"kernels": [...]}`` JSON line
 (launch counts of phase 2) and, last, ``{"ok": true, "device": {...}}``.
 It exits non-zero without a CUDA device and when ``src/repro_torch`` is
@@ -2085,6 +2101,9 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "minicpm-2b", 4, 128, 6
 TRAIN_GRAD_RTOL, ULP_FACTOR, ULP_BUMPS = 1e-3, 8.0, 3
 #: H100 SXM dense bf16 peak (NVIDIA data sheet), FLOP/s
 BF16_FLOPS = 989e12
+#: (d)'s run of `train_full`: per-step losses, grad norms, lrs and ms, the
+#: peak device bytes and one step's CUDA kernels (phase 15 (b) compares)
+TRAIN_FULL: dict = {}
 
 
 def spec_params(cfg) -> int:
@@ -2169,6 +2188,8 @@ def train_full(dev):
         n, dev_ms = prof
         print(f"  profiler, one train step: {n} CUDA kernels, {dev_ms:.3f} ms on the card against "
               f"{p50:.3f} ms on the host clock (busy share {dev_ms / p50:.4f})")
+    TRAIN_FULL.update(losses=out["losses"], grad_norms=out["grad_norms"], lrs=out["lrs"],
+                      ms=ms, peak=peak, kernels=prof[0] if prof else None)
     del out, model, params, state, step
     free()
 
@@ -2606,6 +2627,213 @@ def phase_lint(dev):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the tables on the card, and training on a host mesh
+# ---------------------------------------------------------------------------
+
+#: calls timed per table entry point (each after one warm-up call)
+TABLE_REPS = 5
+#: (b): the torchrun run's steps (its wsd learning rates are those of phase
+#: 12 (d)'s first three steps: 0, then the peak)
+MESH_TRAIN_STEPS = 3
+
+
+def ms_per_call(fn, reps: int = TABLE_REPS) -> float:
+    """Host-clock ms of one ``fn()`` (each call ends in its read-back)."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def tables_on_card(dev, suite, cha, res, mc) -> None:
+    """(a) `schedule_suite` / `schedule_batch` on the card in both
+    disciplines over phase 2's characterization: equal to the CPU's, to
+    `mapping.schedule_stats` cell by cell and (list) to phase 2's fused
+    back half; `table2_batch` against `sram.table2_metrics` for the
+    nominal model and phase 3's 1024-variant table."""
+    import numpy as np
+    from repro_torch.core import batch as B
+    from repro_torch.core.mapping import schedule_stats
+    from repro_torch.core.sram import TOPOLOGY_LIBRARY, EnergyModel, table2_metrics
+
+    table = B.SuiteTable.from_cha(cha)
+    topos = B.TopologyTable.from_topologies(TOPOLOGY_LIBRARY)
+    names = list(suite)
+    check(list(table.circuits) == names, "tables: the suite's circuit order")
+    c, t, r = len(names), len(topos), len(table.recipes)
+    for disc in ("list", "levels"):
+        card = B.schedule_suite(table, topos, discipline=disc, device=dev)
+        host = B.schedule_suite(table, topos, discipline=disc, device="cpu")
+        for k in host:
+            check(card[k].shape == (c, t, r) and np.array_equal(card[k], host[k]),
+                  f"tables: schedule_suite {disc} {k}: card != CPU")
+        for ci, name in enumerate(names):
+            one = B.schedule_batch(table.workload(name), topos, discipline=disc, device=dev)
+            for k in host:
+                check(np.array_equal(one[k], card[k][ci]),
+                      f"tables: schedule_batch {disc} {name} {k} != schedule_suite's")
+            for ri, recipe in enumerate(table.recipes):
+                for ti, topo in enumerate(TOPOLOGY_LIBRARY):
+                    s = schedule_stats(cha[name][recipe], topo, discipline=disc)
+                    check((card["cycles"][ci, ti, ri], card["active_macro_cycles"][ci, ti, ri],
+                           card["fits"][ci, ti, ri]) == (s.total_cycles, s.active_macro_cycles,
+                                                         s.fits),
+                          f"tables: {disc} {name} {recipe} {topo.name} != schedule_stats")
+            if disc == "list":  # phase 2's fused back half ran the list discipline
+                g = res[name].grid
+                for k, want in (("cycles", g.cycles), ("active_macro_cycles",
+                                                       g.active_macro_cycles), ("fits", g.fits)):
+                    check(np.array_equal(card[k][ci], want),
+                          f"tables: {name} {k} != the fused back half's")
+        suite_ms = ms_per_call(lambda: B.schedule_suite(table, topos, discipline=disc, device=dev))
+        batch_ms = ms_per_call(lambda: B.schedule_batch(table.workload(names[0]), topos,
+                                                        discipline=disc, device=dev))
+        fused = " and phase 2's fused back half" if disc == "list" else ""
+        print(f"tables (a) {disc}: schedule_suite ({c} circuits x {t} topologies x {r} recipes) "
+              f"and schedule_batch per circuit on the card equal the CPU, "
+              f"mapping.schedule_stats in all {c * t * r} cells{fused}; "
+              f"schedule_suite {suite_ms:.3f} ms a call, schedule_batch ({names[0]}) "
+              f"{batch_ms:.3f} ms a call (host clock, read-back included)")
+    worst = 0.0
+    for model, n in ((EnergyModel(), 1), (mc, len(mc))):
+        got = B.table2_batch(topos, model)
+        for v in range(n):
+            for ti, topo in enumerate(TOPOLOGY_LIBRARY):
+                m = model if n == 1 else model.model(v, topology=ti)
+                for k, x in table2_metrics(topo, m).items():
+                    y = got[k][ti] if n == 1 else got[k][v, ti]
+                    worst = max(worst, abs(y - x) / abs(x) if x else abs(y))
+        label = "EnergyModel" if n == 1 else f"{n}-variant Monte-Carlo table"
+        call_ms = ms_per_call(lambda: B.table2_batch(topos, model))
+        print(f"tables (a) table2_batch, {label}: {call_ms:.3f} ms a call (host numpy, as in "
+              f"the reference)")
+    print(f"tables (a) table2_batch against sram.table2_metrics: worst relative gap {worst:.3e} "
+          f"(tol 1e-12)")
+    check(worst <= 1e-12, f"tables: table2_batch {worst} from table2_metrics")
+
+
+def torchrun_train(argv, timeout: int = 900) -> subprocess.CompletedProcess:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    repro_torch.launch.train ...`` from the repository root."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "repro_torch.launch.train", *argv]
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env,
+                          cwd=ROOT)
+
+
+def mesh_train_kernels(dev) -> "int | None":
+    """One train step's CUDA kernels on a (1, 1) NCCL host mesh, in this
+    process (a one-rank group): the launcher builds the model on the mesh
+    in one step, and `profiled_device_ms` runs one more, as (d) profiles
+    the one-device step."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.mesh import destroy_fake_world
+    from repro_torch.launch.specs import batch_logical
+    from repro_torch.launch.train import shard_batch
+    from repro_torch.optim.adamw import AdamWConfig, constant_schedule
+    from repro_torch.train.steps import make_train_step
+
+    destroy_fake_world()  # phase 13's dry-runs leave theirs up
+    free()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        out, _ = run_train(["--arch", TRAIN_ARCH, "--preset", "full", "--batch",
+                            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps", "1"])
+        model, params, state = out["model"], out["params"], out["opt_state"]
+        check(model.mesh is not None, "mesh train: the launcher built no mesh under a group")
+        data = Pipeline(DataConfig(batch_per_host=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                   vocab_size=model.cfg.vocab_size))
+        batch = shard_batch(on(dev, data.get_batch(1)), model, batch_logical(model.cfg, True))
+        step = make_train_step(model, constant_schedule(out["lrs"][-1]), AdamWConfig())
+        with implicit_replication():
+            prof = profiled_device_ms(lambda: step(params, state, batch))
+        del out, model, params, state, step, batch
+    finally:
+        dist.destroy_process_group()
+        free()
+    return prof[0] if prof else None
+
+
+def phase_tables_mesh(dev, suite, cha, res, mc):
+    """(a) `tables_on_card`; (b) minicpm-2b at published size trained by
+    ``torchrun --standalone --nproc-per-node 1 -m repro_torch.launch.train``
+    on a (1, 1) NCCL mesh (DTensor params), phase 12 (d)'s argv for 3
+    steps: its losses, grad norms and learning rates against (d)'s first
+    three (loss within 1e-4, grad norms within `TRAIN_GRAD_RTOL`, phase
+    12's tolerances; bit-equality reported), ms a step, peak memory and a
+    step's kernels beside (d)'s; ``--model-parallel 2`` on the one card
+    refused with the `ValueError`.  Neither K1 nor K2 is launched."""
+    import math
+    import statistics
+
+    t_phase = time.time()
+    zero_launches()
+    tables_on_card(dev, suite, cha, res, mc)
+
+    free()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        metrics = os.path.join(tmp, "metrics.json")
+        t = time.perf_counter()
+        run = torchrun_train(["--arch", TRAIN_ARCH, "--preset", "full", "--batch",
+                              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--schedule", "wsd",
+                              "--steps", str(MESH_TRAIN_STEPS), "--device", "cuda",
+                              "--metrics-out", metrics])
+        wall = time.perf_counter() - t
+        if run.returncode != 0:
+            print(run.stdout[-4000:], run.stderr[-8000:], file=sys.stderr)
+        check(run.returncode == 0, f"mesh train: torchrun exited {run.returncode}")
+        with open(metrics) as f:
+            got = json.load(f)
+    want = TRAIN_FULL
+    n = MESH_TRAIN_STEPS
+    check(got["mesh"] == {"data": 1, "model": 1}, f"mesh train: mesh {got['mesh']}")
+    check(got["lrs"] == want["lrs"][:n], f"mesh train: lrs {got['lrs']} != {want['lrs'][:n]}")
+    loss_gap = max(abs(a - b) for a, b in zip(got["losses"], want["losses"]))
+    gn_gap = max(abs(a - b) / abs(b) for a, b in zip(got["grad_norms"], want["grad_norms"]))
+    bit_equal = got["losses"] == want["losses"][:n] and got["grad_norms"] == want["grad_norms"][:n]
+    ms = [1e3 * x for x in got["step_s"]]
+    kernels = mesh_train_kernels(dev)
+    print(f"mesh train (b) {TRAIN_ARCH} --preset full through torchrun on a (1, 1) NCCL mesh "
+          f"(DTensor params), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, wsd, {n} steps in "
+          f"{wall:.3f} s (process start, NCCL and model init included)")
+    for i in range(n):
+        print(f"  step {i}: loss {got['losses'][i]!r} (phase 12 {want['losses'][i]!r}), grad norm "
+              f"{got['grad_norms'][i]!r} ({want['grad_norms'][i]!r}), lr {got['lrs'][i]:.3e}, "
+              f"{ms[i]:.3f} ms (phase 12 {want['ms'][i]:.3f})")
+    verdict = ("losses and grad norms bit-equal" if bit_equal else
+               f"losses within {loss_gap:.3e} (tol 1e-4), grad norms within {gn_gap:.3e} of "
+               f"theirs (tol {TRAIN_GRAD_RTOL}), not bit-equal")
+    print(f"  against phase 12 (d)'s one-device run: {verdict}; step ms p50 {statistics.median(ms[1:]):.3f} (phase 12 "
+          f"{statistics.median(want['ms'][1:]):.3f}); peak device memory "
+          f"{got['peak_device_bytes']} B (phase 12 {want['peak']} B); one step's CUDA kernels "
+          f"{kernels} (phase 12 {want['kernels']})")
+    check(all(math.isfinite(x) for x in got["losses"] + got["grad_norms"]),
+          "mesh train: a non-finite loss or grad norm")
+    check(loss_gap <= 1e-4, f"mesh train: losses {loss_gap} from phase 12's")
+    check(gn_gap <= TRAIN_GRAD_RTOL, f"mesh train: grad norms {gn_gap} from phase 12's")
+
+    run = torchrun_train(["--preset", "smoke", "--steps", "1", "--device", "cuda",
+                          "--model-parallel", "2"], timeout=300)
+    refusal = "ValueError: --model-parallel 2 does not divide the world size 1"
+    check(run.returncode != 0 and refusal in run.stderr,
+          f"mesh train: --model-parallel 2 on one card exited {run.returncode} without "
+          f"the refusal:\n{run.stderr[-4000:]}")
+    print(f"mesh train (b) --model-parallel 2 under torchrun on one card: exit "
+          f"{run.returncode}, {refusal!r}")
+    launched = k1_k2_idle("tables and host-mesh training")
+    wall = time.time() - t_phase
+    print(f"tables/mesh phase: wall {wall:.3f} s; K1/K2 launches {json.dumps(launched)}")
+    return wall
+
+
 KERNELS = {
     "eval_mega": (
         "aig_sim.eval_mega",
@@ -2654,7 +2882,7 @@ def main() -> int:
     suite, cha, res, netlists, vectors, launches, front_s, back_s = phase_main(dev, rng)
     mc, fused = phase_sweep(dev, suite, cha)
     times.update(phase_k2(dev, netlists, vectors))
-    # Phases 5-14 run after the kernel line's launch counts were taken
+    # Phases 5-15 run after the kernel line's launch counts were taken
     # (``launches`` is phase 2's); each phase sets the counts to 0 first.
     served = {n: suite[n] for n in SERVICE_CIRCUITS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2671,11 +2899,13 @@ def main() -> int:
     llm12_s = phase_llm12(dev, rng)
     mesh_s = phase_mesh(dev)
     lint_s = phase_lint(dev)
-    print(f"phases 5-14 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
+    tables_s = phase_tables_mesh(dev, suite, cha, res, mc)
+    print(f"phases 5-15 wall: service {service_s:.3f} s, sweep runner {runner_s:.3f} s, "
           f"CLI {cli_s:.3f} s, chaos {chaos_s:.3f} s, journal overhead {overhead_s:.3f} s, "
           f"system {system_s:.3f} s, LM serving {llm_s:.3f} s, MoE/recurrent LM serving "
           f"{llm11_s:.3f} s, enc-dec/VLM serving and training {llm12_s:.3f} s, mesh "
-          f"explorer {mesh_s:.3f} s, lint {lint_s:.3f} s")
+          f"explorer {mesh_s:.3f} s, lint {lint_s:.3f} s, tables and host-mesh training "
+          f"{tables_s:.3f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

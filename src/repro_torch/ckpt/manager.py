@@ -32,7 +32,8 @@ journal or checkpoint written by either package loads in the other:
     additionally a payload crc32) before trusting any array.
   * device-free format: arrays are saved as host numpy keyed by their
     path in a nest of dicts, lists and tuples; `restore` moves them to
-    the device it is given (one device: nothing is sharded).
+    the device it is given, or lays each onto a `DeviceMesh` as a
+    DTensor (``shardings=``).
 
 ``defer_snapshot=True`` enqueues device tensors as they are and lets the
 writer thread copy them to the host in ONE batched transfer (every
@@ -67,10 +68,13 @@ class CheckpointCorruptError(RuntimeError):
     consuming torn state."""
 
 
-def _flatten(tree, prefix: str = "") -> dict:
+def _flatten(tree, prefix: str = "", is_leaf=None) -> dict:
     """``{"a/0/b": leaf}`` for a nest of dicts, lists and tuples, in the
     order (and with the key spelling) of the reference's pytree paths:
-    dict keys sorted, sequence items by index."""
+    dict keys sorted, sequence items by index.  ``is_leaf(node)`` true
+    stops the descent at ``node`` (a ``(mesh, placements)`` pair)."""
+    if is_leaf is not None and is_leaf(tree):
+        return {prefix: tree}
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (list, tuple)):
@@ -79,8 +83,15 @@ def _flatten(tree, prefix: str = "") -> dict:
         return {prefix: tree}
     out = {}
     for k, v in items:
-        out.update(_flatten(v, f"{prefix}/{k}" if prefix else k))
+        out.update(_flatten(v, f"{prefix}/{k}" if prefix else k, is_leaf))
     return out
+
+
+def _is_sharding(node) -> bool:
+    """A ``(DeviceMesh, placements)`` leaf of a ``shardings`` tree."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return isinstance(node, tuple) and len(node) == 2 and isinstance(node[0], DeviceMesh)
 
 
 def _unflatten(like, flat: dict, prefix: str = ""):
@@ -579,16 +590,24 @@ class CheckpointManager:
         return out, meta
 
     def restore(self, like_tree, step: int | None = None,
-                device: "str | torch.device | None" = None):
+                device: "str | torch.device | None" = None, shardings=None):
         """Restore into the structure of ``like_tree`` as tensors on
         ``device`` (default ``cuda``, raising without a card; ``"cpu"``
-        keeps them on the host).  Returns ``(tree, meta)``."""
+        keeps them on the host).  Returns ``(tree, meta)``.
+
+        ``shardings``: optional tree keyed like ``like_tree`` whose leaves
+        are ``(DeviceMesh, placements)`` pairs (or None: that leaf goes to
+        ``device``).  Each such leaf is read whole and laid onto its mesh
+        by ``distribute_tensor``, every rank slicing its own shard of the
+        file's array (no collective), so a checkpoint saved on one mesh,
+        or on one device, restores onto another."""
         dev = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         data, meta = self.load_arrays(step)
         flat = _flatten(like_tree)
+        places = {} if shardings is None else _flatten(shardings, is_leaf=_is_sharding)
         vals = {}
         for key, like in flat.items():
             if key not in data:
@@ -602,5 +621,21 @@ class CheckpointManager:
             name = meta["manifest"][key]["dtype"]
             if name in _DECODE_VIEW:
                 t = t.view(_DECODE_VIEW[name][1])
-            vals[key] = t.to(dev)
+            place = places.get(key)
+            if place is None:
+                vals[key] = t.to(dev)
+            else:
+                from torch.distributed.tensor import distribute_tensor
+
+                mesh, placements = place
+                vals[key] = distribute_tensor(t, mesh, placements, src_data_rank=None)
         return _unflatten(like_tree, vals), meta
+
+    def restore_or_none(self, like_tree, shardings=None,
+                        device: "str | torch.device | None" = None):
+        """`restore` of the latest step, or None where there is no
+        checkpoint to restore."""
+        try:
+            return self.restore(like_tree, device=device, shardings=shardings)
+        except FileNotFoundError:
+            return None

@@ -22,6 +22,10 @@ of torch tensor ops:
     metrics, a few KB) crosses to the host, and the returned grids are
     *lazy* (`_LazyArrays`) — their tensors stay on the device until first
     access;
+  * ``schedule_batch`` / ``schedule_suite`` — `mapping.schedule_stats`
+    alone over the grid / the suite (model-free integers, one read-back);
+    ``table2_batch`` — the paper's Table II per topology (numpy on the
+    host, as in the reference);
   * ``select_best`` / ``select_best_batch`` / ``select_best_worst`` — the
     numpy admissibility filter + energy argmin shared with the explorer;
     ``select_best_batch_device`` runs it on the device for precomputed
@@ -69,6 +73,7 @@ from .sram import (
     paper_energy_nj,
     paper_power_mw,
     physical_energy_nj,
+    table2_arrays,
 )
 
 # repro: kernel-module — host syncs in device-adjacent code are annotated
@@ -988,12 +993,37 @@ class VariationGrid(_LazyArrays):
         )
 
 
+def _schedule(ops, n_levels, topos, discipline, device) -> dict[str, np.ndarray]:
+    """`_schedule_core` over ``(C, R, L, 3)`` op counts on ``device``:
+    ``(C, T, R)`` numpy ``cycles`` / ``active_macro_cycles`` / ``fits``."""
+    o = _Operands.build(ops, n_levels, topos, resolve_device(device))
+    out = dict(zip(_SCHED_KEYS, _schedule_core(o, discipline)))
+    # repro: host-boundary — the schedule's one read-back
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def schedule_batch(
+    work: WorkloadTable,
+    topos: TopologyTable,
+    discipline: str = "list",
+    device: "str | torch.device | None" = None,
+) -> dict[str, np.ndarray]:
+    """``mapping.schedule_stats`` over the full grid in one pass on
+    ``device`` (default ``cuda``, raising without a card).
+
+    Returns ``(n_topologies, n_recipes)`` arrays: ``cycles``,
+    ``active_macro_cycles``, ``fits``.  (Pipelined writeback only — the
+    scalar path's default.)  Schedules are model-free, so there is no
+    variant axis here.
+    """
+    out = _schedule(work.ops[None], work.n_levels[None], topos, discipline, device)
+    return {k: v[0] for k, v in out.items()}
+
 
 def _grid_feasible(topos, feasible) -> np.ndarray:
     if feasible is None:
         feasible = np.ones(len(topos), dtype=bool)
     return np.asarray(feasible, dtype=bool)
-
 
 
 def _build_grid(
@@ -1150,6 +1180,18 @@ class SuiteGrid(_LazyArrays):
             tops_per_watt=g("tops_per_watt", (c, t, r)),
             area_mm2=float(np.asarray(self._raw("area_mm2")[t])),  # repro: host-boundary
         )
+
+
+def schedule_suite(
+    suite: SuiteTable,
+    topos: TopologyTable,
+    discipline: str = "list",
+    device: "str | torch.device | None" = None,
+) -> dict[str, np.ndarray]:
+    """`schedule_batch` over the circuit axis too: one pass on ``device``
+    computing ``(n_circuits, n_topologies, n_recipes)`` ``cycles`` /
+    ``active_macro_cycles`` / ``fits`` arrays for the whole suite."""
+    return _schedule(suite.ops, suite.n_levels, topos, discipline, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1724,6 +1766,55 @@ def select_best_worst(energy, fits) -> tuple[int, int]:
     best = int(np.argmin(np.where(pool, energy, np.inf)))
     worst = int(np.argmax(np.where(pool, energy, -np.inf)))
     return best, worst
+
+
+# ---------------------------------------------------------------------------
+# Batched Table II metrics (standalone per-topology figures)
+# ---------------------------------------------------------------------------
+
+
+class _BroadcastModel(NamedTuple):
+    """`table2_arrays`-compatible view of a `ModelTable` with every field
+    shaped (V, 1) — so the same expressions broadcast against (T,)
+    topology arrays into (V, T) outputs."""
+
+    f_clk_hz: np.ndarray
+    e_op_fj: tuple
+    p_ctrl_mw: np.ndarray
+    pipeline_utilization: np.ndarray
+
+
+def table2_batch(
+    topos: TopologyTable,
+    model: "EnergyModel | ModelTable | None" = None,
+    nor_fraction: float = 0.5,
+) -> dict[str, np.ndarray]:
+    """Vectorized ``sram.table2_metrics`` over a TopologyTable — the same
+    ``sram.table2_arrays`` expressions, one numpy pass on the host (as in
+    the reference: a few (V, T) arrays, no device work).  Outputs are (T,)
+    for a single `EnergyModel`, (V, T) for a `ModelTable` of variants
+    (whose scalar fields may be per-topology ``(V, T)``)."""
+    # `is None`, not falsiness — ModelTable defines __len__, so an `or`
+    # here would silently swap a falsy table for the nominal model.
+    if model is None:
+        model = EnergyModel()
+    w = topos.ops_per_cycle.astype(float) * topos.n_macros
+    if isinstance(model, ModelTable):
+        _check_topo_axis(model, topos)
+        e3 = model.e_op_fj  # (V, 3) -> (V, 1) columns; (V, T, 3) -> (V, T)
+        shim = _BroadcastModel(
+            f_clk_hz=_per_topo(model.f_clk_hz),
+            e_op_fj=tuple(
+                (e3[:, :, k] if e3.ndim == 3 else e3[:, k: k + 1])
+                for k in range(3)
+            ),
+            p_ctrl_mw=_per_topo(model.p_ctrl_mw),
+            pipeline_utilization=_per_topo(model.pipeline_utilization),
+        )
+        return table2_arrays(
+            w[None, :], topos.area_mm2(model), shim, nor_fraction
+        )
+    return table2_arrays(w, topos.area_mm2(model), model, nor_fraction)
 
 
 # ---------------------------------------------------------------------------

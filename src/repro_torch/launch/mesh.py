@@ -1,4 +1,5 @@
-"""The production meshes, on a fake 512-rank process group.
+"""The production meshes, on a fake 512-rank process group, and the
+host mesh a training run shards over.
 
 The counterpart of the reference's ``launch/mesh.py``, which builds its
 meshes over 512 placeholder host devices.  Here the placeholders are the
@@ -15,11 +16,18 @@ training run) is an error, not something to reuse.
 
 Production target of the reference: TPU v5e, 256 chips/pod (16x16), two
 pods = 512 chips for the multi-pod dry-run.
+
+`make_host_mesh` is the other kind: a ``(data, model)`` mesh over the real
+ranks of the default process group (one process a device, as ``torchrun``
+starts them), on which `launch.train` trains.  It never touches the fake
+group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 
 from ..models.config import ParallelConfig
 from ..parallel.sharding import POD_DATA
@@ -91,3 +99,79 @@ def make_production_mesh(*, multi_pod: bool = False, mesh_shape: tuple | None = 
 def parallel_config_for(mesh) -> ParallelConfig:
     data_axes = ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
     return ParallelConfig(data_axes=data_axes)
+
+
+def make_host_mesh(model: int = 1, device: "str | None" = None):
+    """A ``(data, model)`` `DeviceMesh` over the ranks of the default
+    process group, ``data = world // model``, rank ``r`` at ``divmod(r,
+    model)``.  Its device type is ``device``'s (``cuda``, the default, one
+    card a rank: ``cuda:LOCAL_RANK``; ``cpu`` over gloo).  Without a group
+    (the fake one does not count) the world is this one process: raises
+    `ValueError` where ``model`` does not divide the world size, then
+    `RuntimeError` where no group is up."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    up = host_group_up()
+    world = dist.get_world_size() if up else 1
+    if model < 1 or world % model:
+        raise ValueError(
+            f"--model-parallel {model} does not divide the world size {world}: start one "
+            f"process a device with `torchrun --nproc-per-node N` for an N that {model} "
+            "divides")
+    if not up:
+        raise RuntimeError("make_host_mesh needs a default process group of real ranks "
+                           "(torchrun, or torch.distributed.init_process_group)")
+    if dev.type == "cuda":
+        torch.cuda.set_device(local_rank())
+    ranks = torch.arange(world).reshape(world // model, model)
+    return DeviceMesh(dev.type, ranks, mesh_dim_names=("data", "model"))
+
+
+def host_group_up() -> bool:
+    """Whether a default process group of real ranks is up (the dry-run's
+    fake group is not one)."""
+    import torch.distributed as dist
+
+    return dist.is_initialized() and dist.get_backend() != "fake"
+
+
+def local_rank() -> int:
+    """This process's device index on its host: torchrun's ``LOCAL_RANK``,
+    else the global rank modulo the host's cards."""
+    import torch
+    import torch.distributed as dist
+
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return rank % max(1, torch.cuda.device_count())
+
+
+@contextlib.contextmanager
+def torchrun_group(device: "str | None" = None):
+    """Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` in the environment)
+    with no default group up: initialise one for the run -- NCCL on
+    ``cuda:LOCAL_RANK``, gloo for ``device="cpu"`` -- from torchrun's
+    rendezvous variables, and destroy it on the way out.  Otherwise a
+    no-op."""
+    import torch
+    import torch.distributed as dist
+
+    from ..device import resolve_device
+
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        yield
+        return
+    if resolve_device(device).type == "cuda":
+        dist.init_process_group("nccl", device_id=torch.device("cuda", local_rank()))
+    else:
+        dist.init_process_group("gloo")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -1,4 +1,4 @@
-"""Training launcher of the port (the end-to-end training loop), on one device.
+"""Training launcher of the port (the end-to-end training loop).
 
 ``--device`` defaults to ``cuda`` and raises without a card unless
 ``--device cpu`` is asked for.  Presets: ``full`` (the published
@@ -6,6 +6,17 @@ config), ``smoke`` (the reduced CPU config) and ``100m`` (about 100M
 params, the family's block pattern kept).  Params are fp32 masters, the
 compute bf16, each scan group under `torch.utils.checkpoint`
 (``remat="block"``).
+
+One process trains on one device.  Under a process group -- one the
+caller set up, or the one ``__main__`` starts from ``torchrun``'s
+variables (NCCL, one card a rank; gloo with ``--device cpu``) -- every
+rank trains on the ``(world / M, M)`` `launch.mesh.make_host_mesh` of
+``--model-parallel M``, as the reference trains on its host mesh: the
+params are DTensors placed by the logical-axis rules
+(`parallel.sharding.rules_for_model`), and every rank draws the one-host
+batch of (seed, step) and keeps its data shard, so the run computes the
+losses of the one-device run of the same argv.  Without a group
+``--model-parallel`` above 1 is refused with a `ValueError`.
 
 Fault tolerance exercised here, as in the reference's launcher:
   * atomic keep-3 checkpoints (``--ckpt-dir``, every ``--ckpt-every``
@@ -23,6 +34,9 @@ Fault tolerance exercised here, as in the reference's launcher:
 
 Examples::
 
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --preset 100m --model-parallel 2
+
     python -m repro_torch.launch.train --device cpu --preset smoke --steps 8
     python -m repro_torch.launch.train --preset 100m --ckpt-dir /tmp/ck --ckpt-every 2
     python -m repro_torch.launch.train --preset 100m --ckpt-dir /tmp/ck --resume
@@ -32,6 +46,7 @@ Examples::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import signal
 import sys
@@ -67,16 +82,45 @@ def build_model_config(arch: str, preset: str):
     raise ValueError(preset)
 
 
+def _whole(t):
+    """A DTensor gathered whole on every rank (a collective); a plain
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _snapshot(model, params: dict, opt_state: dict) -> dict:
     """``dict(p=params, o=opt_state)`` in the reference's layout, as fresh
-    device tensors (the train step writes the live ones in place)."""
+    device tensors (the train step writes the live ones in place); on a
+    mesh each leaf gathered whole, on every rank."""
+    from ..models.layers import tree_leaves
+    from ..models.model import _nest
+
     o = {k: model.to_tree(v) if isinstance(v, dict) else v.clone() for k, v in opt_state.items()}
-    return dict(p=model.to_tree(params), o=o)
+    tree = dict(p=model.to_tree(params), o=o)
+    if model.mesh is None:
+        return tree
+    return _nest({path: _whole(t) for path, t in tree_leaves(tree)})
 
 
-def main(argv: "list[str] | None" = None) -> dict:
-    """Train; returns ``dict(model, params, opt_state, start_step, losses,
-    grad_norms, lrs, step_s)`` (the per-step lists as host floats)."""
+def shard_batch(batch: dict, model, logical: dict) -> dict:
+    """The one-host batch as DTensors on the model's mesh, each rank
+    keeping its shard of the data axis (every rank holds the whole
+    batch, so nothing moves)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..parallel import sharding as sh
+
+    mesh, out = model.mesh, {}
+    for k, t in batch.items():
+        spec = sh.spec_for(mesh, t.shape, logical[k], model.rules)
+        out[k] = distribute_tensor(t, sh.compute_mesh(mesh), sh.placements_for(mesh, spec),
+                                   src_data_rank=None)
+    return out
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="minicpm-2b")
     ap.add_argument("--preset", choices=["smoke", "100m", "full"], default="smoke")
@@ -94,10 +138,17 @@ def main(argv: "list[str] | None" = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError("--model-parallel > 1 shards the model over a mesh "
-                                  "(parallel/sharding.py), which the port has not ported")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the run's per-step loss, grad norm, lr and seconds, its "
+                         "mesh and the peak device memory to this JSON file (rank 0)")
+    return ap
+
+
+def main(argv: "list[str] | None" = None) -> dict:
+    """Train; returns ``dict(model, params, opt_state, start_step, losses,
+    grad_norms, lrs, step_s)`` (the per-step lists as host floats; on a
+    mesh ``params`` and the moments are this rank's DTensors)."""
+    args = _parser().parse_args(sys.argv[1:] if argv is None else argv)
 
     import torch
 
@@ -109,16 +160,33 @@ def main(argv: "list[str] | None" = None) -> dict:
     from ..optim.adamw import (AdamWConfig, adamw_init, constant_schedule, cosine_schedule,
                                wsd_schedule)
     from ..train.steps import make_train_step
+    from .mesh import host_group_up, make_host_mesh
 
-    dev = resolve_device(args.device)
     cfg = build_model_config(args.arch, args.preset)
     pc = ParallelConfig(data_axes=("data",), remat="block")
-    model = Model(cfg, pc, q_chunk=256, kv_chunk=256, device=dev)
+    mesh = None
+    lead = True  # this process prints and writes the checkpoints
+    if host_group_up() or args.model_parallel > 1:
+        import torch.distributed as dist
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        mesh = make_host_mesh(args.model_parallel, device=args.device)
+        dev = torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda" \
+            else torch.device("cpu")
+        lead = dist.get_rank() == 0
+        on_mesh = implicit_replication  # the model's plain tensors join as replicated
+    else:
+        dev = resolve_device(args.device)
+        on_mesh = contextlib.nullcontext
+    say = print if lead else (lambda *a, **k: None)
+    # on a mesh the params are DTensors placed by `parallel.sharding.rules_for_model`
+    model = Model(cfg, pc, mesh=mesh, q_chunk=256, kv_chunk=256, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(args.seed))
     params = model.train_params()
     n_params = sum(p.numel() for p in params.values())
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
-    print(f"arch={cfg.name} preset={args.preset} params={n_params/1e6:.1f}M device={where}")
+    on = "" if mesh is None else f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+    say(f"arch={cfg.name} preset={args.preset} params={n_params/1e6:.1f}M device={where}{on}")
 
     sched = dict(
         wsd=wsd_schedule(args.lr, max(1, args.steps // 10), args.steps * 8 // 10,
@@ -136,16 +204,25 @@ def main(argv: "list[str] | None" = None) -> dict:
         # restore template: the spec tree's leaves carry the shapes
         like = dict(p=model.specs(), o={k: model.specs() if isinstance(v, dict) else 0
                                         for k, v in opt_state.items()})
-        tree, _ = ckpt.restore(like, device=dev)
+        places = None
+        if mesh is not None:  # each leaf onto the mesh as its param lies; the step whole
+            tree_places = model.tree_shardings()
+            places = dict(p=tree_places, o={k: tree_places if isinstance(v, dict) else None
+                                            for k, v in opt_state.items()})
+        tree, _ = ckpt.restore(like, device=dev, shardings=places)
         model.load_tree(tree["p"])
         opt_state = {k: model.from_tree(v) if isinstance(v, dict) else v
                      for k, v in tree["o"].items()}
         start_step = int(opt_state["step"])
-        print(f"resumed from step {start_step}")
+        say(f"resumed from step {start_step}")
 
     data = Pipeline(DataConfig(batch_per_host=args.batch, seq_len=args.seq,
                                vocab_size=cfg.vocab_size, seed=args.seed))
     step_fn = make_train_step(model, sched, opt_cfg, grad_accum=args.grad_accum)
+    if mesh is not None:
+        from .specs import batch_logical
+
+        logical = batch_logical(cfg, train=True)
 
     stop = {"now": False}
     handlers = {}
@@ -154,6 +231,11 @@ def main(argv: "list[str] | None" = None) -> dict:
             stop["now"] = True
         for s in (signal.SIGTERM, signal.SIGINT):
             handlers[s] = signal.signal(s, _sig)
+
+    def save(step: int) -> None:
+        snap = _snapshot(model, params, opt_state)  # a collective on a mesh: every rank
+        if lead:
+            ckpt.save(step, snap)
 
     out = dict(model=model, start_step=start_step, losses=[], grad_norms=[], lrs=[], step_s=[])
     ema = None
@@ -167,8 +249,11 @@ def main(argv: "list[str] | None" = None) -> dict:
             if cfg.n_patches:
                 batch["patches"] = torch.zeros((args.batch, cfg.n_patches, cfg.d_model),
                                                dtype=torch.bfloat16, device=dev)
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
-            loss, lr, gnorm = (float(metrics[k]) for k in ("loss", "lr", "grad_norm"))
+            if mesh is not None:
+                batch = shard_batch(batch, model, logical)
+            with on_mesh():
+                params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss, lr, gnorm = (float(_whole(metrics[k])) for k in ("loss", "lr", "grad_norm"))
             dt = time.perf_counter() - t0  # the float()s above waited for the step
             out["losses"].append(loss)
             out["grad_norms"].append(gnorm)
@@ -176,28 +261,39 @@ def main(argv: "list[str] | None" = None) -> dict:
             out["step_s"].append(dt)
             ema = dt if ema is None else 0.9 * ema + 0.1 * dt
             if dt > 3.0 * ema and step > start_step + 2:
-                print(f"[straggler-monitor] step {step} took {dt:.2f}s (ema {ema:.2f}s)")
+                say(f"[straggler-monitor] step {step} took {dt:.2f}s (ema {ema:.2f}s)")
             if step % max(1, args.steps // 20) == 0 or step == args.steps - 1:
-                print(f"step {step:5d} loss {loss:.4f} lr {lr:.2e} gnorm {gnorm:.3f} {dt:.2f}s")
+                say(f"step {step:5d} loss {loss:.4f} lr {lr:.2e} gnorm {gnorm:.3f} {dt:.2f}s")
             if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, _snapshot(model, params, opt_state))
+                save(step + 1)
             if stop["now"]:
-                print("signal received — checkpointing and exiting")
+                say("signal received — checkpointing and exiting")
                 if ckpt:
-                    ckpt.save(step + 1, _snapshot(model, params, opt_state))
+                    save(step + 1)
                     ckpt.wait()
                 break
         else:
             if ckpt:
-                ckpt.save(args.steps, _snapshot(model, params, opt_state))
+                save(args.steps)
                 ckpt.wait()
-            print("training complete")
+            say("training complete")
     finally:
         for s, h in handlers.items():
             signal.signal(s, h)
     out.update(params=params, opt_state=opt_state)
+    if args.metrics_out and lead:
+        import json
+
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+        mesh_shape = None if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.shape))
+        with open(args.metrics_out, "w") as f:
+            json.dump(dict(start_step=start_step, mesh=mesh_shape, peak_device_bytes=peak,
+                           **{k: out[k] for k in ("losses", "grad_norms", "lrs", "step_s")}), f)
     return out
 
 
 if __name__ == "__main__":
-    main()
+    from .mesh import torchrun_group
+
+    with torchrun_group(_parser().parse_args().device):
+        main()

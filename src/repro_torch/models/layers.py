@@ -676,7 +676,23 @@ def embed_specs(cfg) -> dict:
 def embed(p, tokens, cfg):
     # F.embedding: the same rows as indexing; its backward on the card is a
     # sorted segment sum, so a train step repeats bit for bit
-    return F.embedding(tokens, p["tok"]) * math.sqrt(cfg.d_model)
+    return F.embedding(_lookup_ids(tokens, p["tok"]), p["tok"]) * math.sqrt(cfg.d_model)
+
+
+def _lookup_ids(tokens, table):
+    """On a mesh: the token ids gathered whole on each mesh dim where the
+    table shards its embedding dim (FSDP) -- the layout DTensor's plan of
+    the lookup takes them to anyway.  Done first, because torch's DTensor
+    (2.13) builds a vocab-sharded table's lookup mask from the ids' shard
+    as it was, so a lookup that gathers them itself fails on real values."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not (isinstance(tokens, DTensor) and isinstance(table, DTensor)):
+        return tokens
+    want = tuple(Replicate() if isinstance(tp, Shard) and tp.dim != 0 else ip
+                 for ip, tp in zip(tokens.placements, table.placements))
+    return tokens if want == tuple(tokens.placements) else tokens.redistribute(
+        tokens.device_mesh, want)
 
 
 def unembed(p, x, cfg):

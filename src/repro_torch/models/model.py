@@ -385,10 +385,31 @@ class Model(nn.Module):
             self._assign(path, got[path])
         return self
 
+    def tree_shardings(self) -> dict:
+        """The reference's tree (scanned leaves stacked) of ``(DeviceMesh,
+        placements)``: where each leaf lies on the model's mesh, its
+        stacked ``layers`` dim whole (`ckpt.manager.CheckpointManager.restore`'s
+        ``shardings``)."""
+        mesh = sh.compute_mesh(self.mesh)
+        return _nest({path: (mesh, sh.placements_for(
+            self.mesh, sh.spec_for(self.mesh, s.shape, s.logical, self.rules)))
+            for path, s in L.tree_leaves(self.specs())})
+
     def _assign(self, path: str, value: torch.Tensor) -> None:
+        """Copy a leaf of the reference's tree into its params.  On a mesh
+        a whole value (every rank holds the same one: `init` draws it in
+        full, as the unsharded init does) is cut to each rank's shard, and
+        a DTensor value is laid out as the param is."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
         names, scanned = self._targets(path)
         for g, name in enumerate(names):
-            self.get_parameter(name).copy_(value[g] if scanned else value)
+            p = self.get_parameter(name)
+            v = value[g] if scanned else value
+            if isinstance(p, DTensor):
+                v = (v.redistribute(p.device_mesh, p.placements) if isinstance(v, DTensor)
+                     else distribute_tensor(v, p.device_mesh, p.placements, src_data_rank=None))
+            p.copy_(v)
 
     def _view(self, params: "Mapping[str, torch.Tensor] | None" = None) -> dict:
         """The params the forward reads: the model's own, or ``params``

@@ -65,13 +65,14 @@ def make_train_step(
                 # gathered first: `layers.reshape`)
                 micro = {k: reshape(x, grad_accum, x.shape[0] // grad_accum, *x.shape[1:])
                          for k, x in batch.items()}
-                grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                         for n, p in params.items()}
+                # the fp32 sums start from the first microbatch's grads, so
+                # on a mesh they are laid out as the grads are
+                grads = None
                 loss = 0.0
                 for i in range(grad_accum):
                     mb_loss, _, g = grad_fn(params, {k: x[i] for k, x in micro.items()})
-                    for n in grads:
-                        grads[n] = grads[n] + g[n].float() / grad_accum
+                    g = {n: x.float() / grad_accum for n, x in g.items()}
+                    grads = g if grads is None else {n: grads[n] + g[n] for n in grads}
                     loss = loss + mb_loss / grad_accum
             else:
                 loss, _, grads = grad_fn(params, batch)

@@ -315,6 +315,30 @@ def test_service_request_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("discipline", ["list", "levels"])
+def test_schedule_tables_on_card_equal_cpu(cuda_device, discipline):
+    """`batch.schedule_batch` and `batch.schedule_suite` on the card: the
+    CPU's integers exactly, over three characterized circuits of different
+    depths, every recipe of a short list and the 12 topologies."""
+    from repro_torch.core import batch as B
+    from repro_torch.core.sram import TOPOLOGY_LIBRARY
+
+    recipes = [(), ("Rw",), ("Rf",), ("Rs",), ("Ba", "Rw")]
+    suite = {"adder": C.gen_adder(8), "max": C.gen_max(8, 4), "mul": C.gen_multiplier(4)}
+    cha = T.characterize_suite(suite, recipes, backend="python", n_jobs=1, device="cpu")
+    table = B.SuiteTable.from_cha(cha)
+    topos = B.TopologyTable.from_topologies(TOPOLOGY_LIBRARY)
+    got = B.schedule_suite(table, topos, discipline=discipline, device=cuda_device)
+    want = B.schedule_suite(table, topos, discipline=discipline, device="cpu")
+    for i, name in enumerate(suite):
+        one = B.schedule_batch(table.workload(name), topos, discipline=discipline,
+                               device=cuda_device)
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k
+            assert np.array_equal(one[k], want[k][i]), (name, k)
+
+
+@pytest.mark.cuda
 def test_two_shard_journaled_sweep_on_card(cuda_device, tmp_path):
     """A two-shard journaled sweep on the card, crashed after its first
     shard and resumed, equals the uninterrupted run bit for bit."""

@@ -405,8 +405,3 @@ def test_sigterm_writes_a_final_checkpoint(tmp_path, monkeypatch):
     assert "signal received" in log and "training complete" not in log
     assert len(out["losses"]) == 3 and CheckpointManager(str(tmp_path)).latest_step() == 3
     assert signal.getsignal(signal.SIGTERM) is before
-
-
-def test_model_parallel_is_not_ported():
-    with pytest.raises(NotImplementedError, match="model-parallel"):
-        run_cli(["--model-parallel", "2"])
