@@ -13,7 +13,14 @@ and serves ``--requests`` random prompts.  whisper-tiny and internvl2-2b
 read encoder frames or image patches besides the prompts, which
 ``llm`` (as the reference's) does not pass: `ServeEngine.serve` refuses
 them with a `ValueError` naming the input; serve them through
-``ServeEngine.generate(..., extra_batch=)``.  ``explore`` spins up `serve.explore_service.ExplorationService` (a warm
+``ServeEngine.generate(..., extra_batch=)``.  ``llm --trace-out PATH``
+switches the port's tracer (`runtime.trace`) on for the run and writes one
+Chrome-trace JSON there at exit: the engine's, the model's and the MoE's
+spans on the host and (on a card) their device intervals, and the
+counters, with ``ts`` in microseconds of CLOCK_REALTIME, the clock of a
+``torch.profiler`` trace, so Perfetto shows both on one time axis (the
+first `trace.LIMIT` spans; it prints how many it dropped past them).
+``explore`` spins up `serve.explore_service.ExplorationService` (a warm
 persistent query engine on ``--device``, default ``cuda``), streams
 design queries at it, and prints per-request winners and service-time
 percentiles.
@@ -24,6 +31,7 @@ Examples::
     python -m repro_torch.launch.serve llm --device cpu --preset smoke
     python -m repro_torch.launch.serve llm --arch deepseek-moe-16b --preset full
     python -m repro_torch.launch.serve llm --device cpu --arch mamba2-780m
+    python -m repro_torch.launch.serve llm --device cpu --trace-out /tmp/serve_trace.json
     python -m repro_torch.launch.serve explore --scale tiny --requests 16
     python -m repro_torch.launch.serve explore --circuits adder,max \\
         --max-memory-kb 96 --max-latency-ns 400 --sweep mc --variants 8
@@ -44,10 +52,13 @@ def _main_llm(args: argparse.Namespace) -> None:
     from ..device import resolve_device
     from ..models.config import ParallelConfig
     from ..models.model import Model
+    from ..runtime import trace
     from ..serve.engine import Request, ServeEngine
     from .train import build_model_config
 
     dev = resolve_device(args.device)
+    if args.trace_out:
+        trace.enable()
     cfg = build_model_config(args.arch, args.preset)
     model = Model(cfg, ParallelConfig(), q_chunk=64, kv_chunk=64, device=dev,
                   param_dtype=torch.bfloat16)
@@ -72,6 +83,11 @@ def _main_llm(args: argparse.Namespace) -> None:
           f"({n_tok/dt:.1f} tok/s on {where})")
     for r in done[:3]:
         print(f"  req {r.uid}: {[int(t) for t in r.out_tokens[:8]]}...")
+    if args.trace_out:
+        trace.disable()
+        record = trace.export_chrome(args.trace_out)
+        print(f"trace: {len(record['spans'])} spans to {args.trace_out}"
+              + (f", {record['dropped']} dropped" if record["dropped"] else ""))
 
 
 def _main_explore(args: argparse.Namespace) -> None:
@@ -167,6 +183,8 @@ def main(argv: "list[str] | None" = None) -> None:
     llm.add_argument("--temperature", type=float, default=0.0)
     llm.add_argument("--device", default="cuda",
                      help="cuda (default; raises without a card) or cpu")
+    llm.add_argument("--trace-out", default=None,
+                     help="trace the run (runtime.trace) and write its Chrome-trace JSON here")
 
     ex = sub.add_parser(
         "explore", help="warm persistent rCiM exploration service"

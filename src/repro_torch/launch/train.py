@@ -32,6 +32,14 @@ Fault tolerance exercised here, as in the reference's launcher:
     have;
   * step-time straggler monitor (EMA; logs steps exceeding 3x it).
 
+``--trace-out PATH`` switches the port's tracer (`runtime.trace`) on for
+the run and writes one Chrome-trace JSON there at exit (rank 0 only): the
+train step's spans (``train.step``, ``.forward``, ``.backward``,
+``.optimizer``, the blocks and the MoE inside them) on the host and (on a
+card) their device intervals, and the counters, with ``ts`` in
+microseconds of CLOCK_REALTIME, the clock of a ``torch.profiler`` trace
+(the first `trace.LIMIT` spans; it prints how many it dropped past them).
+
 Examples::
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
@@ -41,6 +49,7 @@ Examples::
     python -m repro_torch.launch.train --preset 100m --ckpt-dir /tmp/ck --ckpt-every 2
     python -m repro_torch.launch.train --preset 100m --ckpt-dir /tmp/ck --resume
     python -m repro_torch.launch.train --arch minicpm-2b --preset full --steps 6
+    python -m repro_torch.launch.train --device cpu --steps 2 --trace-out /tmp/train_trace.json
 """
 
 from __future__ import annotations
@@ -141,6 +150,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None,
                     help="write the run's per-step loss, grad norm, lr and seconds, its "
                          "mesh and the peak device memory to this JSON file (rank 0)")
+    ap.add_argument("--trace-out", default=None,
+                    help="trace the run (runtime.trace) and write its Chrome-trace JSON here "
+                         "(rank 0)")
     return ap
 
 
@@ -159,6 +171,7 @@ def main(argv: "list[str] | None" = None) -> dict:
     from ..models.model import Model
     from ..optim.adamw import (AdamWConfig, adamw_init, constant_schedule, cosine_schedule,
                                wsd_schedule)
+    from ..runtime import trace
     from ..train.steps import make_train_step
     from .mesh import host_group_up, make_host_mesh
 
@@ -179,6 +192,9 @@ def main(argv: "list[str] | None" = None) -> dict:
         dev = resolve_device(args.device)
         on_mesh = contextlib.nullcontext
     say = print if lead else (lambda *a, **k: None)
+    tracing = bool(args.trace_out) and lead
+    if tracing:
+        trace.enable()
     # on a mesh the params are DTensors placed by `parallel.sharding.rules_for_model`
     model = Model(cfg, pc, mesh=mesh, q_chunk=256, kv_chunk=256, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(args.seed))
@@ -280,6 +296,11 @@ def main(argv: "list[str] | None" = None) -> dict:
     finally:
         for s, h in handlers.items():
             signal.signal(s, h)
+        if tracing:
+            trace.disable()
+            record = trace.export_chrome(args.trace_out)
+            say(f"trace: {len(record['spans'])} spans to {args.trace_out}"
+                + (f", {record['dropped']} dropped" if record["dropped"] else ""))
     out.update(params=params, opt_state=opt_state)
     if args.metrics_out and lead:
         import json

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime import trace
+
 #: mask value of scores and padded vocab rows (the reference's)
 NEG = -1e30
 
@@ -605,6 +607,13 @@ def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1, constrain_fn=None):
     the experts' outputs groups over data, experts over model (the
     reference's expert parallelism; the reference constrains them in its
     train blocks, the port in every mode).  Returns ``(out, aux_loss)``.
+
+    Spans ``moe.route``, ``moe.experts`` (dispatch and experts) and
+    ``moe.combine`` (the combine and the shared experts); counters
+    ``moe.assignments``, ``moe.slots``, ``moe.slots_filled`` and
+    ``moe.dropped`` (the last two from ``keep``, reduced at
+    `runtime.trace.collect`).  The router is called through the module's
+    `moe_route`, so a caller may wrap it.
     """
     b, s, d = x.shape
     n = b * s
@@ -613,51 +622,61 @@ def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1, constrain_fn=None):
     ng = n // g
     xt = x.reshape(g, ng, d)
     a = act_fn(cfg.act)
-    r = moe_route(p, xt, cfg)
-    cap = r.cap
+    with trace.span("moe.route"):
+        r = moe_route(p, xt, cfg)
+        cap = r.cap
+        if trace.active():
+            trace.count("moe.assignments", g * ng * k)
+            trace.count("moe.slots", g * e * cap)
+            trace.count("moe.slots_filled", r.keep)
+            trace.count("moe.dropped", r.keep, trace.falses)
 
-    st = r.order // k  # token of each sorted assignment
-    sg = r.gate_vals.reshape(g, ng * k).gather(1, r.order)
-    keep = r.keep[..., None]
-    gathered = torch.where(keep, xt.gather(1, st[..., None].expand(-1, -1, d)), 0)
-    # kept slots are unique; a dropped assignment adds exact zeros
-    buf = torch.zeros((g, e * cap, d), dtype=xt.dtype, device=xt.device).scatter_add(
-        1, r.dst[..., None].expand(-1, -1, d), gathered).reshape(g, e, cap, d)
-    def run_experts(buf, w_gate, w_up, w_down):
-        h = a(torch.einsum("gecd,edf->gecf", buf, w_gate)) * torch.einsum(
-            "gecd,edf->gecf", buf, w_up)
-        return torch.einsum("gecf,efd->gecd", h, w_down)
+    with trace.span("moe.experts"):
+        st = r.order // k  # token of each sorted assignment
+        keep = r.keep[..., None]
+        gathered = torch.where(keep, xt.gather(1, st[..., None].expand(-1, -1, d)), 0)
+        # kept slots are unique; a dropped assignment adds exact zeros
+        buf = torch.zeros((g, e * cap, d), dtype=xt.dtype, device=xt.device).scatter_add(
+            1, r.dst[..., None].expand(-1, -1, d), gathered).reshape(g, e, cap, d)
 
-    ws = [p[n].to(buf.dtype) for n in ("we_gate", "we_up", "we_down")]
-    if constrain_fn is None:
-        y = run_experts(buf, *ws)
-    else:
-        # each device runs its groups through its experts (shard_map-style),
-        # the expert weights gathered whole over data (FSDP), as DTensor's
-        # einsums would flatten the two sharded dims into a strided shard
-        from torch.distributed.tensor.experimental import local_map
+        def run_experts(buf, w_gate, w_up, w_down):
+            h = a(torch.einsum("gecd,edf->gecf", buf, w_gate)) * torch.einsum(
+                "gecd,edf->gecf", buf, w_up)
+            return torch.einsum("gecf,efd->gecd", h, w_down)
 
-        buf = constrain_fn(buf, ("batch", "act_experts", None, None))
-        ws = [constrain_fn(w, ("act_experts", None, None)) for w in ws]
-        pl = [list(t.placements) for t in (buf, *ws)]
-        y = local_map(run_experts, out_placements=pl[0], in_placements=tuple(pl))(buf, *ws)
-    y = reshape(y, g, e * cap, d)
+        ws = [p[n].to(buf.dtype) for n in ("we_gate", "we_up", "we_down")]
+        if constrain_fn is None:
+            y = run_experts(buf, *ws)
+        else:
+            # each device runs its groups through its experts (shard_map-style),
+            # the expert weights gathered whole over data (FSDP), as DTensor's
+            # einsums would flatten the two sharded dims into a strided shard
+            from torch.distributed.tensor.experimental import local_map
 
-    yd = y.gather(1, r.dst[..., None].expand(-1, -1, d))  # (G, Ng*k, D)
-    contrib = torch.where(keep, yd * sg[..., None].to(y.dtype), 0)
-    # each token's k sorted positions, in ascending expert order
-    inv = torch.zeros_like(r.order).scatter(
-        1, r.order, torch.arange(ng * k, device=x.device).expand(g, -1).contiguous())
-    pos = inv.reshape(g, ng, k).gather(2, torch.argsort(r.expert_idx, dim=-1))
-    per_tok = contrib.gather(1, pos.reshape(g, ng * k, 1).expand(-1, -1, d)).reshape(g, ng, k, d)
-    out = torch.zeros((g, ng, d), dtype=xt.dtype, device=x.device)
-    for j in range(k):
-        out = out + per_tok[:, :, j]
+            buf = constrain_fn(buf, ("batch", "act_experts", None, None))
+            ws = [constrain_fn(w, ("act_experts", None, None)) for w in ws]
+            pl = [list(t.placements) for t in (buf, *ws)]
+            y = local_map(run_experts, out_placements=pl[0], in_placements=tuple(pl))(buf, *ws)
+        y = reshape(y, g, e * cap, d)
 
-    if cfg.n_shared_experts:
-        hs = a(xt @ p["ws_gate"].to(xt.dtype)) * (xt @ p["ws_up"].to(xt.dtype))
-        out = out + hs @ p["ws_down"].to(xt.dtype)
-    return out.reshape(b, s, d), r.aux_loss
+    with trace.span("moe.combine"):
+        sg = r.gate_vals.reshape(g, ng * k).gather(1, r.order)
+        yd = y.gather(1, r.dst[..., None].expand(-1, -1, d))  # (G, Ng*k, D)
+        contrib = torch.where(keep, yd * sg[..., None].to(y.dtype), 0)
+        # each token's k sorted positions, in ascending expert order
+        inv = torch.zeros_like(r.order).scatter(
+            1, r.order, torch.arange(ng * k, device=x.device).expand(g, -1).contiguous())
+        pos = inv.reshape(g, ng, k).gather(2, torch.argsort(r.expert_idx, dim=-1))
+        per_tok = contrib.gather(1, pos.reshape(g, ng * k, 1).expand(-1, -1, d)).reshape(
+            g, ng, k, d)
+        out = torch.zeros((g, ng, d), dtype=xt.dtype, device=x.device)
+        for j in range(k):
+            out = out + per_tok[:, :, j]
+
+        if cfg.n_shared_experts:
+            hs = a(xt @ p["ws_gate"].to(xt.dtype)) * (xt @ p["ws_up"].to(xt.dtype))
+            out = out + hs @ p["ws_down"].to(xt.dtype)
+        return out.reshape(b, s, d), r.aux_loss
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
 from ..parallel import sharding as sh
+from ..runtime import trace
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig, ParallelConfig
@@ -243,6 +244,8 @@ class Model(nn.Module):
         self.q_chunk = q_chunk
         self.kv_chunk = kv_chunk
         self.kinds = cfg.layer_kinds
+        #: each layer's span attributes, built once (`runtime.trace`)
+        self._span_attrs = [dict(layer=i, kind=k) for i, k in enumerate(self.kinds)]
         place = None
         if mesh is not None:
             place = lambda spec, dt: sh.sharded_zeros(
@@ -481,46 +484,50 @@ class Model(nn.Module):
 
     # -- block forward (train/prefill) --------------------------------------
 
-    def _block_train(self, p, x, kind: str, enc_out=None):
-        """One block over the whole sequence -> (x, prefill cache, MoE aux
+    def _block_train(self, i: int, p, x, kind: str, enc_out=None):
+        """Block ``i`` over the whole sequence -> (x, prefill cache, MoE aux
         loss or None).  The cache is ``(k, v)`` un-repeated for attention,
         ``(k, v, xk, xv)`` for ``xattn``, ``dict(conv, state)`` for the
-        recurrent kinds."""
+        recurrent kinds.  Spans ``block.attn`` (the mixer, cross-attention
+        included) and ``block.ffn``, each with its norm and residual add."""
         cfg = self.cfg
-        h = self._norm(x, p["norm1"])
-        if kind in ("attn", "local", "xattn"):
-            out, cache = L.attention_train(
-                p["attn"], h, cfg, "attn" if kind == "xattn" else kind, cfg.rope_theta,
-                q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
-                constrain_fn=self._mesh_constrain)
-        elif kind == "ssm":
-            out, cache = S.mamba2_forward(p["ssm"], h, cfg)
-            return self._residual(x, out), cache, None
-        elif kind == "rglru":
-            out, cache = S.rglru_forward(p["rglru"], h, cfg)
-        else:
-            raise ValueError(kind)
-        x = self._residual(x, out)
-        if kind == "xattn":
-            h = self._norm(x, p["norm_x"])
-            xkv = L.encode_kv(p["xattn"], enc_out, cfg)
-            x = self._residual(x, L.cross_attention(p["xattn"], h, xkv, cfg,
-                                                    constrain_fn=self._mesh_constrain))
-            cache = (*cache, *xkv)
-        h = self._norm(x, p["norm2"])
-        aux = None
-        if "moe" in p:
-            ff, aux = L.moe_ffn(p["moe"], h, cfg, n_groups=self._moe_groups(),
-                                constrain_fn=self._mesh_constrain)
-        else:
-            ff = L.mlp(p["mlp"], h, cfg)
-        return self._constrain(self._residual(x, ff), SEQ_SHARD), cache, aux
+        with trace.span("block.attn", self._span_attrs[i]):
+            h = self._norm(x, p["norm1"])
+            if kind in ("attn", "local", "xattn"):
+                out, cache = L.attention_train(
+                    p["attn"], h, cfg, "attn" if kind == "xattn" else kind, cfg.rope_theta,
+                    q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
+                    constrain_fn=self._mesh_constrain)
+            elif kind == "ssm":
+                out, cache = S.mamba2_forward(p["ssm"], h, cfg)
+                return self._residual(x, out), cache, None
+            elif kind == "rglru":
+                out, cache = S.rglru_forward(p["rglru"], h, cfg)
+            else:
+                raise ValueError(kind)
+            x = self._residual(x, out)
+            if kind == "xattn":
+                h = self._norm(x, p["norm_x"])
+                xkv = L.encode_kv(p["xattn"], enc_out, cfg)
+                x = self._residual(x, L.cross_attention(p["xattn"], h, xkv, cfg,
+                                                        constrain_fn=self._mesh_constrain))
+                cache = (*cache, *xkv)
+        with trace.span("block.ffn", self._span_attrs[i]):
+            h = self._norm(x, p["norm2"])
+            aux = None
+            if "moe" in p:
+                ff, aux = L.moe_ffn(p["moe"], h, cfg, n_groups=self._moe_groups(),
+                                    constrain_fn=self._mesh_constrain)
+            else:
+                ff = L.mlp(p["mlp"], h, cfg)
+            return self._constrain(self._residual(x, ff), SEQ_SHARD), cache, aux
 
     def _group_train(self, group, x, enc_out):
-        """The blocks of one scan group -> (x, summed aux loss)."""
+        """The blocks ``(layer, params, kind)`` of one scan group -> (x,
+        summed aux loss)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p, kind in group:
-            x, _, a = self._block_train(p, x, kind, enc_out)
+        for i, p, kind in group:
+            x, _, a = self._block_train(i, p, x, kind, enc_out)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -555,7 +562,8 @@ class Model(nn.Module):
             n = len(seg.kinds)
             for g in range(seg.n_groups):
                 first = seg.first_layer + g * n
-                group = [(P["layers"][first + i], kind) for i, kind in enumerate(seg.kinds)]
+                group = [(first + i, P["layers"][first + i], kind)
+                         for i, kind in enumerate(seg.kinds)]
                 run = functools.partial(self._group_train, group)
                 if seg.scanned and remat != "none":
                     x, aux = ckpt.checkpoint(run, x, enc_out, **kw)
@@ -674,67 +682,77 @@ class Model(nn.Module):
             out.append(seg_l)
         return out
 
-    def _block_decode(self, p, x, kind, cache, pos: int):
+    def _block_decode(self, i: int, p, x, kind, cache, pos: int):
+        """Block ``i`` for one token; spans as `_block_train`'s."""
         cfg = self.cfg
-        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-        if kind in ("attn", "local", "xattn"):
-            out, cache = L.attention_decode(p["attn"], h, cfg, "attn" if kind == "xattn" else kind,
-                                            cfg.rope_theta, cache, pos, self._mesh_constrain)
-        elif kind == "ssm":
-            out, cache = S.mamba2_decode(p["ssm"], h, cfg, cache)
-            return self._constrain(x + out, SEQ_SHARD), cache
-        elif kind == "rglru":
-            out, cache = S.rglru_decode(p["rglru"], h, cfg, cache)
-        else:
-            raise ValueError(kind)
-        x = x + out
-        if kind == "xattn":
-            h = L.rms_norm(x, p["norm_x"], cfg.norm_eps)
-            x = x + L.cross_attention(p["xattn"], h, (cache["xk"], cache["xv"]), cfg,
-                                      constrain_fn=self._mesh_constrain)
-        h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        if "moe" in p:
-            ff, _ = L.moe_ffn(p["moe"], h, cfg, n_groups=self._moe_groups(),
-                              constrain_fn=self._mesh_constrain)
-        else:
-            ff = L.mlp(p["mlp"], h, cfg)
-        return self._constrain(x + ff, SEQ_SHARD), cache
+        with trace.span("block.attn", self._span_attrs[i]):
+            h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+            if kind in ("attn", "local", "xattn"):
+                out, cache = L.attention_decode(p["attn"], h, cfg,
+                                                "attn" if kind == "xattn" else kind,
+                                                cfg.rope_theta, cache, pos, self._mesh_constrain)
+            elif kind == "ssm":
+                out, cache = S.mamba2_decode(p["ssm"], h, cfg, cache)
+                return self._constrain(x + out, SEQ_SHARD), cache
+            elif kind == "rglru":
+                out, cache = S.rglru_decode(p["rglru"], h, cfg, cache)
+            else:
+                raise ValueError(kind)
+            x = x + out
+            if kind == "xattn":
+                h = L.rms_norm(x, p["norm_x"], cfg.norm_eps)
+                x = x + L.cross_attention(p["xattn"], h, (cache["xk"], cache["xv"]), cfg,
+                                          constrain_fn=self._mesh_constrain)
+        with trace.span("block.ffn", self._span_attrs[i]):
+            h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+            if "moe" in p:
+                ff, _ = L.moe_ffn(p["moe"], h, cfg, n_groups=self._moe_groups(),
+                                  constrain_fn=self._mesh_constrain)
+            else:
+                ff = L.mlp(p["mlp"], h, cfg)
+            return self._constrain(x + ff, SEQ_SHARD), cache
 
     def decode_step(self, caches: list[dict], token: torch.Tensor, pos: int):
         """One decode step.  token: (B,) ints on the model's device; pos: the
         host int position, one for the whole batch (after the patch prefix,
-        if any).  The caches are updated in place and returned."""
-        x = L.embed(self.embed, token[:, None], self.cfg).to(self.compute_dtype)
-        x = self._constrain(x, SEQ_SHARD)
-        for i, (p, kind) in enumerate(zip(self.layers, self.kinds)):
-            x, caches[i] = self._block_decode(p, x, kind, caches[i], pos)
-        x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        logits = L.unembed(self.embed, x, self.cfg)
-        return logits[:, 0, :], caches
+        if any).  The caches are updated in place and returned.  Span
+        ``model.decode_step`` over ``block.*`` and ``model.unembed``."""
+        with trace.span("model.decode_step"):
+            x = L.embed(self.embed, token[:, None], self.cfg).to(self.compute_dtype)
+            x = self._constrain(x, SEQ_SHARD)
+            for i, (p, kind) in enumerate(zip(self.layers, self.kinds)):
+                x, caches[i] = self._block_decode(i, p, x, kind, caches[i], pos)
+            with trace.span("model.unembed"):
+                x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+                logits = L.unembed(self.embed, x, self.cfg)
+            return logits[:, 0, :], caches
 
     def prefill(self, batch: dict):
         """Prompt pass: returns (last-position logits, per-layer caches).
         The encoder and the patch prefix run first; local layers keep only
         their last ``window`` keys; ``xattn`` layers keep the encoder's
         cross keys and values; recurrent layers keep their conv inputs and
-        final fp32 state."""
+        final fp32 state.  Span ``model.prefill`` over ``block.*`` and
+        ``model.unembed``."""
         cfg, cd = self.cfg, self.compute_dtype
-        x, enc_out = self._inputs(self._view(), batch)
-        x = self._constrain(x, SEQ_SHARD)
-        caches = []
-        for p, kind in zip(self.layers, self.kinds):
-            x, cache, _ = self._block_train(p, x, kind, enc_out)
-            if kind in RECURRENT_KINDS:
-                caches.append(cache)
-                continue
-            k, v, *xkv = cache
-            if kind == "local" and cfg.window and cfg.window < x.shape[1]:
-                k = k[:, -cfg.window:]
-                v = v[:, -cfg.window:]
-            c = dict(k=k.to(cd), v=v.to(cd))
-            if xkv:
-                c.update(xk=xkv[0].to(cd), xv=xkv[1].to(cd))
-            caches.append(c)
-        x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = L.unembed(self.embed, x[:, -1:, :], cfg)
-        return logits[:, 0, :], caches
+        with trace.span("model.prefill"):
+            x, enc_out = self._inputs(self._view(), batch)
+            x = self._constrain(x, SEQ_SHARD)
+            caches = []
+            for i, (p, kind) in enumerate(zip(self.layers, self.kinds)):
+                x, cache, _ = self._block_train(i, p, x, kind, enc_out)
+                if kind in RECURRENT_KINDS:
+                    caches.append(cache)
+                    continue
+                k, v, *xkv = cache
+                if kind == "local" and cfg.window and cfg.window < x.shape[1]:
+                    k = k[:, -cfg.window:]
+                    v = v[:, -cfg.window:]
+                c = dict(k=k.to(cd), v=v.to(cd))
+                if xkv:
+                    c.update(xk=xkv[0].to(cd), xv=xkv[1].to(cd))
+                caches.append(c)
+            with trace.span("model.unembed"):
+                x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
+                logits = L.unembed(self.embed, x[:, -1:, :], cfg)
+            return logits[:, 0, :], caches

@@ -27,6 +27,13 @@ variable-length requests on a fixed batch of decode slots.  Prompts are
 left-padded with token 0 and the pads are attended (they hold positions
 0..pad-1), as in the reference; in a recurrent layer they pass through
 the conv and enter the state.
+
+Spans (`runtime.trace`, a no-op unless on): ``engine.wave`` around each
+wave of `serve`, ``engine.prefill`` (the prefill and the cache
+alignment), and per step ``engine.readback`` (the host's wait for the
+step's tokens) and ``engine.decode`` (the decode step and the sampling).
+The engine calls ``self.model.prefill`` and ``self.model.decode_step`` by
+attribute, so a caller may wrap them.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.model import Model
+from ..runtime import trace
 
 
 def align_prefill_caches(model: Model, caches: list[dict], prompt_len: int,
@@ -124,19 +132,23 @@ class ServeEngine:
         batch = dict(tokens=torch.as_tensor(np.asarray(prompts, np.int64), device=self.device))
         for name, x in (extra_batch or {}).items():
             batch[name] = torch.as_tensor(x, device=self.device)
-        logits, caches = self.model.prefill(batch)
-        n_patches = self.model.cfg.n_patches or 0
-        caches = align_prefill_caches(self.model, caches, plen + n_patches,
-                                      self.max_seq + n_patches, batch=b)
+        trace.next_wave()
+        with trace.span("engine.prefill"):
+            logits, caches = self.model.prefill(batch)
+            n_patches = self.model.cfg.n_patches or 0
+            caches = align_prefill_caches(self.model, caches, plen + n_patches,
+                                          self.max_seq + n_patches, batch=b)
 
         out = np.zeros((b, max_new), np.int32)
         tok = self._sample(logits)
         for t in range(max_new):
-            out[:, t] = tok.cpu().numpy()
+            with trace.span("engine.readback", t=t):
+                out[:, t] = tok.cpu().numpy()
             if t == max_new - 1:
                 break
-            logits, caches = self.model.decode_step(caches, tok, n_patches + plen + t)
-            tok = self._sample(logits)
+            with trace.span("engine.decode", t=t):
+                logits, caches = self.model.decode_step(caches, tok, n_patches + plen + t)
+                tok = self._sample(logits)
         return out
 
     # -- slot-based continuous batching (lite) -------------------------------
@@ -174,7 +186,11 @@ class ServeEngine:
             for i, r in enumerate(wave):
                 prompts[i, prompt_pad - len(r.prompt):] = r.prompt  # left-pad
             max_new = max(r.max_new for r in wave)
-            toks = self.generate(prompts, max_new)
+            attrs = None
+            if trace.active():
+                attrs = dict(uids=[r.uid for r in wave], max_new=[r.max_new for r in wave])
+            with trace.span("engine.wave", attrs):
+                toks = self.generate(prompts, max_new)
             for i, r in enumerate(wave):
                 r.out_tokens = list(toks[i, : r.max_new])
                 r.done = True

@@ -4,6 +4,12 @@ microbatch gradient accumulation and optional gradient compression.
 Value and grad come from `torch.autograd` through `Model.loss_fn`; the
 step is eager, on the model's device, and syncs nothing with the host
 (the metrics stay tensors).
+
+Spans (`runtime.trace`, a no-op unless on): ``train.step`` over
+``train.forward`` (`Model.loss_fn`), ``train.backward``
+(`torch.autograd.grad`, where remat recomputes the scanned blocks, whose
+spans nest under it) and ``train.optimizer`` (`adamw_update` and
+`global_norm`); with microbatches one forward and backward each.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 from ..models.layers import reshape
 from ..models.model import Model
 from ..optim.adamw import AdamWConfig, adamw_update, global_norm
+from ..runtime import trace
 
 
 def make_train_step(
@@ -49,16 +56,22 @@ def make_train_step(
         raise ValueError("grad_shardings: the model is on no mesh and shards nothing; "
                          "pass None")
 
-    def grad_fn(params: dict, batch: dict):
-        fwd = params
-        if cast_bf16:
-            fwd = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
-                   for n, p in params.items()}
-        loss, aux = model.loss_fn(batch, params=fwd)
-        grads = torch.autograd.grad(loss, list(params.values()))
+    def grad_fn(params: dict, batch: dict, t: "int | None" = None):
+        with trace.span("train.forward", t=t):
+            fwd = params
+            if cast_bf16:
+                fwd = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                       for n, p in params.items()}
+            loss, aux = model.loss_fn(batch, params=fwd)
+        with trace.span("train.backward", t=t):
+            grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), aux, dict(zip(params, grads))
 
     def train_step(params: dict, opt_state: dict, batch: dict):
+        with trace.span("train.step"):
+            return _step(params, opt_state, batch)
+
+    def _step(params: dict, opt_state: dict, batch: dict):
         with torch.enable_grad():
             if grad_accum > 1:
                 # (on a mesh a batch sharded finer than grad_accum divides is
@@ -70,7 +83,7 @@ def make_train_step(
                 grads = None
                 loss = 0.0
                 for i in range(grad_accum):
-                    mb_loss, _, g = grad_fn(params, {k: x[i] for k, x in micro.items()})
+                    mb_loss, _, g = grad_fn(params, {k: x[i] for k, x in micro.items()}, i)
                     g = {n: x.float() / grad_accum for n, x in g.items()}
                     grads = g if grads is None else {n: grads[n] + g[n] for n in grads}
                     loss = loss + mb_loss / grad_accum
@@ -79,9 +92,11 @@ def make_train_step(
         if grad_shardings is not None:
             grads = {n: g.redistribute(g.device_mesh, grad_shardings[n]) for n, g in grads.items()}
 
-        lr = schedule(opt_state["step"])
-        params, opt_state = adamw_update(grads, opt_state, params, lr, opt_cfg)
-        metrics = dict(loss=loss, lr=lr, grad_norm=global_norm(grads), step=opt_state["step"])
+        with trace.span("train.optimizer"):
+            lr = schedule(opt_state["step"])
+            params, opt_state = adamw_update(grads, opt_state, params, lr, opt_cfg)
+            grad_norm = global_norm(grads)
+        metrics = dict(loss=loss, lr=lr, grad_norm=grad_norm, step=opt_state["step"])
         return params, opt_state, metrics
 
     return train_step
