@@ -6,7 +6,7 @@ Usage (from the repository root, on a machine with one CUDA card and
 
     python3 chip_smoke.py
 
-It builds both hand-written kernels from ``src/repro_torch/kernels/csrc``
+It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 and then runs these phases, failing (non-zero exit) on any error:
 
 1. K1 (``aig_sim.eval_mega`` / ``aig_sim.sig_eval``) against its plain
@@ -92,10 +92,18 @@ and then runs these phases, failing (non-zero exit) on any error:
    gemma3-27b at published width and one pattern period of depth (five
    ``local`` layers, one ``attn``), fp32, prompt 1,088 > window 1,024
    (ring rotated by 64), 64 decode steps against the forward; (e)
-   ``python -m repro_torch.launch.serve llm --preset 100m`` in process.
-   Tolerances: the reference's 2e-3 (prefill) and 5e-3 (decode) on the
-   logits, 1e-3 of their scale on the caches.  The path launches
-   neither K1 nor K2.
+   ``python -m repro_torch.launch.serve llm --preset 100m`` in process;
+   (f) the decode attention kernel (``decode_attn.decode_attention``)
+   against its plain version on the same bf16 card tensors at both
+   serving cells' layer shapes and two small batches it splits: caches
+   bit-equal, outputs within ``decode_attn.tolerance``, a launch that
+   skips the oldest valid slot outside it; ms per launch beside the
+   plain version, ``scaled_dot_product_attention`` (a yardstick the port
+   never calls), the bound, and for the split shapes the kernel without
+   its occupancy split.  Tolerances of (b)-(d): the reference's 2e-3
+   (prefill) and 5e-3 (decode) on the logits, 1e-3 of their scale on
+   the caches.  The path launches neither K1 nor K2; its decode
+   attention launches in (a)-(e) are the kernel row's ``launches``.
 11. The LM serving path of the MoE and recurrent families, random
    weights from seed 0, TF32 off: (a) deepseek-moe-16b,
    recurrentgemma-9b and mamba2-780m at published size in bf16 (every
@@ -202,7 +210,9 @@ clock ``nvidia-smi`` reports as ``clocks.max.sm``).
 It prints the card (``nvidia-smi --query-gpu=name,power.limit``), the
 build seconds, per-phase times (the launches of phases 5-15 on lines of
 their own), the script's wall time, a ``{"kernels": [...]}`` JSON line
-(launch counts of phase 2) and, last, ``{"ok": true, "device": {...}}``.
+(launch counts of phase 2; the decode attention kernel's of phase 10,
+its times the mean over the two serving cells' shapes) and, last,
+``{"ok": true, "device": {...}}``.
 It exits non-zero without a CUDA device and when ``src/repro_torch`` is
 not beside it.
 """
@@ -307,7 +317,7 @@ def mega_bytes(batch, k_max: int, w: int) -> int:
 
 
 #: Largest |kernel - plain| seen per kernel over every comparison made.
-MAX_ERR = {"eval_mega": 0, "sig_eval": 0, "cim": 0}
+MAX_ERR = {"eval_mega": 0, "sig_eval": 0, "cim": 0, "decode_attn": 0}
 
 
 _SM_CLOCK_HZ: list[float] = []
@@ -879,8 +889,9 @@ BURST_REQUESTS, BURST_THREADS = 64, 4
 def zero_launches():
     from repro_torch.kernels import aig_sim as A
     from repro_torch.kernels import cim_logic as K
+    from repro_torch.kernels import decode_attn as DA
 
-    for d in (A.LAUNCHES, A.TIER_LAUNCHES, K.LAUNCHES):
+    for d in (A.LAUNCHES, A.TIER_LAUNCHES, K.LAUNCHES, DA.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -1986,6 +1997,106 @@ def serve_cli_100m(dev, arch: str) -> str:
             f"{dev.type}` in process, {time.perf_counter() - t:.3f} s: {lines[0]}")
 
 
+#: (f)'s decode attention shapes: (name, batch, slots, KV heads, n_rep,
+#: head_dim, pos).  The serving cells' layers at their last prompt
+#: position, then two batches too small to fill the card, which the launch
+#: plan splits into chunks (the second also by its scores' shared memory).
+DECODE_ATTN_SHAPES = (
+    ("minicpm-2b.serve", 32, 2176, 36, 1, 64, 2111),
+    ("deepseek-moe-16b.serve", 256, 384, 16, 1, 128, 319),
+    ("minicpm-2b at batch 2", 2, 2176, 36, 1, 64, 2111),
+    ("deepseek-coder-33b at batch 1", 1, 8192, 8, 7, 128, 7999),
+)
+#: the shapes whose times make the kernel's row of the ``kernels`` line
+DECODE_ATTN_CELLS = 2
+
+
+def decode_attn_checks(dev) -> dict:
+    """(f) The decode attention kernel (`layers.decode_attend_kernel`)
+    against its plain version (`layers.decode_attend`) on the same bf16
+    card tensors at `DECODE_ATTN_SHAPES`: caches bit-equal after the
+    append, the output within `decode_attn.tolerance` of the plain one,
+    and a launch that skips the oldest valid slot outside it.  Times per
+    launch (CUDA events): the kernel, the plain version, PyTorch's
+    ``scaled_dot_product_attention`` over the same valid slots as a
+    yardstick only (no RoPE, no append; the port never calls it), and
+    for the split shapes the kernel with the occupancy split off
+    (``WAVES = 0``).  The bound reads the attended K and V once.  Returns
+    the kernel row's times: the mean over the serving cells' shapes."""
+    import math
+    import types
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn as DA
+    from repro_torch.models import layers as L
+
+    rows = []
+    for name, b, s, kv, n_rep, hd, pos in DECODE_ATTN_SHAPES:
+        cfg = types.SimpleNamespace(n_heads=kv * n_rep, n_kv_heads=kv, window=0)
+        g = torch.Generator(device=dev).manual_seed(pos)
+        mk = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        q, kn, vn = mk(b, 1, kv * n_rep, hd), mk(b, 1, kv, hd), mk(b, 1, kv, hd)
+        kern = dict(k=mk(b, s, kv, hd), v=mk(b, s, kv, hd))
+        plain = {k: t.clone() for k, t in kern.items()}
+        skip = {k: t.clone() for k, t in kern.items()}
+        with torch.inference_mode():
+            want = L.decode_attend(q, kn, vn, plain, cfg, "attn", 1e4, pos)
+            got = L.decode_attend_kernel(q, kn, vn, kern, cfg, "attn", 1e4, pos)
+            first, n = L.decode_window("attn", cfg, s, pos)
+            off = DA.decode_attention(q, kn, vn, skip["k"], skip["v"],
+                                      L.rope_inv_freq(hd, 1e4, dev), pos, first + 1, n - 1,
+                                      1.0 / math.sqrt(hd))
+        for c in ("k", "v"):
+            check(torch.equal(kern[c].view(torch.int16), plain[c].view(torch.int16)),
+                  f"llm (f) {name}: the kernel's {c} cache differs from the plain version's")
+        tol = DA.tolerance(want, plain["v"])
+        gap = (got.float() - want.float()).abs()
+        share = float((gap / tol).max())
+        planted = float(((off.float() - want.float()).abs() / tol).max())
+        check(share <= 1.0, f"llm (f) {name}: the output is {share:.3f}x its tolerance off")
+        check(planted > 1.0, f"llm (f) {name}: skipping the oldest slot stays within the "
+                             f"tolerance ({planted:.3f}x)")
+        MAX_ERR["decode_attn"] = max(MAX_ERR["decode_attn"], float(gap.max()))
+        del plain, skip, want, off
+        free()
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: L.decode_attend_kernel(q, kn, vn, kern, cfg, "attn", 1e4, pos),
+                         50)
+            plain_ms = cuda_ms(lambda: L.decode_attend(q, kn, vn, kern, cfg, "attn", 1e4, pos),
+                               5)
+            qs = q.transpose(1, 2)  # (B, H, 1, D)
+            ks, vs = kern["k"][:, :n].transpose(1, 2), kern["v"][:, :n].transpose(1, 2)
+            library_ms = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=n_rep > 1), 50)
+            threads, n_split, _ = DA.plan(b, kv, n_rep, hd, 2, n, DA._sm_count(dev.index))
+            unsplit = ""
+            if n_split > 1:
+                waves, DA.WAVES = DA.WAVES, 0
+                try:
+                    _, n_unsplit, _ = DA.plan(b, kv, n_rep, hd, 2, n, DA._sm_count(dev.index))
+                    unsplit_ms = cuda_ms(
+                        lambda: L.decode_attend_kernel(q, kn, vn, kern, cfg, "attn", 1e4, pos),
+                        50)
+                finally:
+                    DA.WAVES = waves
+                unsplit = (f"; without the occupancy split ({n_unsplit} chunk(s)) "
+                           f"{unsplit_ms:.4f} ms")
+        bound_ms = 2 * b * n * kv * hd * 2 / HBM_BYTES_PER_S * 1e3
+        print(f"llm (f) decode attention, {name} (B {b}, {n} of {s} slots, {kv} KV heads x "
+              f"{n_rep}, head_dim {hd}, bf16): caches bit-equal, output at most {share:.4f} "
+              f"of its tolerance off (max |kernel - plain| {float(gap.max()):.3e}), the "
+              f"oldest slot skipped {planted:.2f}x; {b * kv * n_split} blocks x {threads} "
+              f"threads ({n_split} chunk(s)); {ms:.4f} ms a layer, bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f}%), plain {plain_ms:.3f} ms, "
+              f"scaled_dot_product_attention (yardstick) {library_ms:.4f} ms{unsplit}")
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms))
+        del q, kn, vn, kern, got, gap, tol
+        free()
+    cells = rows[:DECODE_ATTN_CELLS]
+    return {k: sum(r[k] for r in cells) / len(cells) for k in cells[0]}
+
+
 def k1_k2_idle(phase: str) -> dict:
     from repro_torch.kernels import aig_sim as A
     from repro_torch.kernels import cim_logic as K
@@ -2000,7 +2111,11 @@ def phase_llm(dev, rng):
     served at published size in bf16, (b) its decode against the forward
     in fp32, (c) card against CPU at depth 2, (d) gemma3-27b's ring cache
     at published width, (e) `launch.serve llm --preset 100m` in process.
-    The path launches neither K1 nor K2 (their counts stay 0)."""
+    The path launches neither K1 nor K2 (their counts stay 0), and its
+    decode attention is the hand kernel (`kernels.decode_attn`), whose
+    launches (a)-(e) count; then (f), that kernel against its plain
+    version (`decode_attn_checks`).  Returns the wall seconds and the
+    kernel's times, with those launches."""
     import dataclasses
 
     from repro_torch.launch.train import build_model_config
@@ -2017,9 +2132,15 @@ def phase_llm(dev, rng):
     card_vs_cpu(dev, dataclasses.replace(cfg, n_layers=2), rng, "(c)", 2, 64, 16)
     print(f"llm (e) {serve_cli_100m(dev, LLM_ARCH)}")
     launched = k1_k2_idle("LM path")
+    from repro_torch.kernels import decode_attn as DA
+
+    served = DA.LAUNCHES["decode_attn"]
+    check(served > 0, "the LM path launched no decode attention kernel")
+    times = dict(decode_attn_checks(dev), launches=served)
     wall = time.time() - t_phase
-    print(f"llm phase: wall {wall:.3f} s; K1/K2 launches {json.dumps(launched)}")
-    return wall
+    print(f"llm phase: wall {wall:.3f} s; K1/K2 launches {json.dumps(launched)}; decode "
+          f"attention launches {served} in (a)-(e)")
+    return wall, times
 
 
 # ---------------------------------------------------------------------------
@@ -2598,7 +2719,8 @@ def phase_lint(dev):
     graph_s = time.time() - t
     check(launched == {"eval_mega": 1, "sig_eval": 1, "cim": 1},
           f"lint (b): the hand kernels' builders launched {launched}")
-    check(registry.launch_counts() == {"eval_mega": 1, "sig_eval": 1, "cim": 1},
+    check(registry.launch_counts() == {"eval_mega": 1, "sig_eval": 1, "cim": 1,
+                                       "decode_attn": 0},
           f"lint (b): the launch counters read {registry.launch_counts()}")
 
     rng = np.random.default_rng(7)
@@ -2850,6 +2972,11 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/cim_logic.cu",
         "src/repro/kernels/cim_logic.py:96",
     ),
+    "decode_attn": (
+        "decode_attn.decode_attention",
+        "src/repro_torch/kernels/csrc/decode_attn.cu",
+        None,  # the reference's decode attention is jnp, no Pallas kernel
+    ),
 }
 
 
@@ -2894,7 +3021,9 @@ def main() -> int:
         journal_overhead(dev, suite, f"{tmp}/cli_warm", f"{tmp}/overhead")
         overhead_s = time.time() - t
     system_s = phase_system(dev, rng)
-    llm_s = phase_llm(dev, rng)
+    llm_s, llm_times = phase_llm(dev, rng)
+    launches = {**launches, "decode_attn": llm_times.pop("launches")}
+    times["decode_attn"] = llm_times
     llm11_s = phase_llm11(dev, rng)
     llm12_s = phase_llm12(dev, rng)
     mesh_s = phase_mesh(dev)
@@ -2922,7 +3051,7 @@ def main() -> int:
                 plain_ms=t["plain_ms"],
                 bound_ms=t.get("bound_ms", t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3),
                 bound_by=t.get("bound_by", "bytes"),
-                library_ms=None,
+                library_ms=t.get("library_ms"),
             )
         )
     print(f"chip_smoke wall {time.time() - t_start:.3f} s")

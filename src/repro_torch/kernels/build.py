@@ -5,8 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 headers, so a build takes seconds).  Libraries land in
 ``build/torch_kernels/`` at the repository root, named by a hash of the
 source and the flags, so an unchanged source is never rebuilt.  Nothing is built at import time:
-`load` builds on first use, and `build_all` starts one ``nvcc`` per
-source at once.
+`load` builds on first use, `build_all` starts one ``nvcc`` per source
+at once, and `prefetch` starts one in the background.
 
 A failed build, operands a kernel refuses (`OperandError`), a launch
 that returns a CUDA error, or a CUDA error that surfaces later at a copy
@@ -25,13 +25,15 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("aig_sim", "cim_logic")
+SOURCES = ("aig_sim", "cim_logic", "decode_attn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: Builds `prefetch` started and `load` has not waited for yet.
+_PENDING: dict[str, "tuple[Path, subprocess.Popen | None]"] = {}
 
 
 class KernelError(RuntimeError):
@@ -95,11 +97,19 @@ def build_all() -> dict[str, str]:
     return {name: _finish(name, out, proc) for name, (out, proc) in started.items()}
 
 
+def prefetch(name: str) -> None:
+    """Start building ``csrc/<name>.cu`` in the background unless it is
+    built, loaded or building: `load` then waits for that ``nvcc``."""
+    if name not in _LIBS and name not in _PENDING:
+        _PENDING[name] = _start(name)
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use (or
+    by the build `prefetch` started)."""
     lib = _LIBS.get(name)
     if lib is None:
-        out, proc = _start(name)
+        out, proc = _PENDING.pop(name, None) or _start(name)
         _finish(name, out, proc)
         lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib

@@ -2,7 +2,8 @@
 
 Mirrors the reference's ``models/layers.py`` function by function: param
 specs, norms, rope, chunked online-softmax attention (train / prefill)
-and single-token decode attention against a KV cache, the decoder's
+and single-token decode attention against a KV cache (on CUDA tensors off
+a mesh one hand kernel, `kernels.decode_attn`), the decoder's
 cross-attention over encoder keys and values, the gated MLP, the
 fine-grained MoE FFN (shared + routed top-k experts, sort-based dispatch
 into a capacity buffer), and the (padded-vocab) embedding.
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import decode_attn as _decode_attn
 from ..runtime import trace
 
 #: mask value of scores and padded vocab rows (the reference's)
@@ -246,7 +248,9 @@ def attention_specs(cfg) -> dict:
     return s
 
 
-def _project_qkv(p, x, cfg, positions, theta):
+def _project(p, x, cfg):
+    """q (B, S, H, D), k and v (B, S, KV, D) of ``x``: the projections, the
+    biases and (``qk_norm``) the norms, before RoPE."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ p["wq"].to(x.dtype)
@@ -262,9 +266,12 @@ def _project_qkv(p, x, cfg, positions, theta):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
     return q, k, v
+
+
+def _project_qkv(p, x, cfg, positions, theta):
+    q, k, v = _project(p, x, cfg)
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -403,23 +410,72 @@ def attention_train(p, x, cfg, kind: str, theta: float, q_chunk: int = 1024,
     return out @ p["wo"].to(x.dtype), (k, v)
 
 
-def attention_decode(p, x, cfg, kind: str, theta: float, cache: dict, pos: int,
-                     constrain_fn=None):
-    """Single-token decode against a KV cache, updated in place.
+@functools.lru_cache(maxsize=None)
+def rope_inv_freq(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """`rope_freqs` once per (head_dim, theta, device): the decode kernel's
+    operand (the same numbers as the plain version's per-call ones)."""
+    return rope_freqs(head_dim, theta, device)
 
-    cache: dict(k=(B, S_cache, KV, D), v=...);  pos: the current index, a
-    host int (one for the whole batch), so nothing here syncs.  Local
-    layers use a ring cache of size ``window`` -- positions are mapped
-    modulo the ring.  On a mesh (``constrain_fn``) q is placed as the
-    cache's heads are (`_attend`)."""
-    b = x.shape[0]
-    hd = cfg.resolved_head_dim
-    dev = x.device
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions, theta)
+
+def _is_ring(kind: str, cfg, s_cache: int) -> bool:
+    """Whether a decode cache is a local layer's ring (``s_cache <=
+    window``): position p at slot p mod ``s_cache``; else at slot p."""
+    return bool(kind == "local" and cfg.window and cfg.window < 10**9 and s_cache <= cfg.window)
+
+
+def decode_window(kind: str, cfg, s_cache: int, pos: int) -> tuple[int, int]:
+    """``(first, n)``: the slots a decode step at ``pos`` attends over an
+    ``s_cache``-slot cache, ``n`` of them from ``first`` on, modulo
+    ``s_cache`` (`_is_ring`); the last is the new entry's."""
+    if _is_ring(kind, cfg, s_cache):
+        n = min(pos + 1, cfg.window, s_cache)
+        return (pos - n + 1) % s_cache, n
+    if pos >= s_cache:
+        raise IndexError(f"decode position {pos} beyond the cache's {s_cache} slots")
+    lo = max(0, pos - cfg.window + 1) if kind == "local" and cfg.window else 0
+    return lo, pos + 1 - lo
+
+
+def _uses_kernel(x: torch.Tensor, constrain_fn) -> bool:
+    """Whether `attention_decode` runs the hand kernel: on CUDA, off a mesh."""
+    return constrain_fn is None and x.device.type == "cuda"
+
+
+def prefetch_decode_kernel(x: torch.Tensor, constrain_fn=None) -> None:
+    """Start building the decode kernel in the background where
+    `attention_decode` would launch it for ``x`` (a prefill calls this, so
+    that the build overlaps the prompt pass)."""
+    if _uses_kernel(x, constrain_fn):
+        _decode_attn.prefetch()
+
+
+def decode_attend_kernel(q, k_new, v_new, cache: dict, cfg, kind: str, theta: float,
+                         pos: int) -> torch.Tensor:
+    """`decode_attend` as one launch of `kernels.decode_attn` (CUDA
+    tensors): the same operands and result."""
+    hd = q.shape[-1]
+    first, n = decode_window(kind, cfg, cache["k"].shape[1], pos)
+    out = _decode_attn.decode_attention(
+        q, k_new, v_new, cache["k"], cache["v"], rope_inv_freq(hd, theta, q.device), pos,
+        first, n, 1.0 / math.sqrt(hd))
+    trace.count("attn.decode_kernel", 1)
+    return out
+
+
+def decode_attend(q, k_new, v_new, cache: dict, cfg, kind: str, theta: float, pos: int,
+                  constrain_fn=None) -> torch.Tensor:
+    """The plain version of the decode kernel: RoPE of ``q`` (B, 1, H, D)
+    and ``k_new`` (B, 1, KV, D) at ``pos``, the append of ``k_new`` and
+    ``v_new`` into the cache at their slot, and attention over the valid
+    slots; returns (B, 1, H, D).  On a mesh (``constrain_fn``) q is placed
+    as the cache's heads are (`_attend`)."""
+    b, _, _, hd = q.shape
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=q.device)
+    q = apply_rope(q, positions, theta)
+    k_new = apply_rope(k_new, positions, theta)
 
     s_cache = cache["k"].shape[1]
-    is_ring = kind == "local" and cfg.window and cfg.window < 10**9 and s_cache <= cfg.window
+    is_ring = _is_ring(kind, cfg, s_cache)
     slot = pos % s_cache if is_ring else pos
     k, v = cache["k"], cache["v"]
     k[:, slot] = k_new[:, 0].to(k.dtype)
@@ -445,8 +501,27 @@ def attention_decode(p, x, cfg, kind: str, theta: float, cache: dict, pos: int,
         prob = torch.softmax(s_, dim=-1).to(vv.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", prob, vv)
 
-    out = _attend(attend, q, k, v, constrain_fn, hoist_kv=False)
-    out = reshape(out, b, 1, cfg.n_heads * hd).to(x.dtype)
+    return _attend(attend, q, k, v, constrain_fn, hoist_kv=False)
+
+
+def attention_decode(p, x, cfg, kind: str, theta: float, cache: dict, pos: int,
+                     constrain_fn=None):
+    """Single-token decode against a KV cache, updated in place.
+
+    cache: dict(k=(B, S_cache, KV, D), v=...);  pos: the current index, a
+    host int (one for the whole batch), so nothing here syncs.  Local
+    layers use a ring cache of size ``window`` -- positions are mapped
+    modulo the ring.  The projections run here; RoPE, the append and the
+    attention are one hand kernel on CUDA tensors off a mesh
+    (`decode_attend_kernel`), else the plain version (`decode_attend`;
+    on a mesh, ``constrain_fn``, over DTensors)."""
+    b = x.shape[0]
+    q, k_new, v_new = _project(p, x, cfg)
+    if _uses_kernel(x, constrain_fn):
+        out = decode_attend_kernel(q, k_new, v_new, cache, cfg, kind, theta, pos)
+    else:
+        out = decode_attend(q, k_new, v_new, cache, cfg, kind, theta, pos, constrain_fn)
+    out = reshape(out, b, 1, cfg.n_heads * cfg.resolved_head_dim).to(x.dtype)
     return out @ p["wo"].to(x.dtype), cache
 
 

@@ -732,12 +732,15 @@ class Model(nn.Module):
         The encoder and the patch prefix run first; local layers keep only
         their last ``window`` keys; ``xattn`` layers keep the encoder's
         cross keys and values; recurrent layers keep their conv inputs and
-        final fp32 state.  Span ``model.prefill`` over ``block.*`` and
-        ``model.unembed``."""
+        final fp32 state.  On a card, a model with attention layers starts
+        building the decode kernel first (`layers.prefetch_decode_kernel`).
+        Span ``model.prefill`` over ``block.*`` and ``model.unembed``."""
         cfg, cd = self.cfg, self.compute_dtype
         with trace.span("model.prefill"):
             x, enc_out = self._inputs(self._view(), batch)
             x = self._constrain(x, SEQ_SHARD)
+            if any(k not in RECURRENT_KINDS for k in self.kinds):
+                L.prefetch_decode_kernel(x, self._mesh_constrain)
             caches = []
             for i, (p, kind) in enumerate(zip(self.layers, self.kinds)):
                 x, cache, _ = self._block_train(i, p, x, kind, enc_out)

@@ -97,6 +97,7 @@ HOST_TID, DEVICE_TID = 1, 2
 
 #: The counter names the program bumps.
 COUNTERS: dict[str, str] = {
+    "attn.decode_kernel": "launches of the decode attention kernel (CUDA, off a mesh)",
     "moe.assignments": "routed (token, expert) assignments",
     "moe.dropped": "assignments beyond their expert's capacity",
     "moe.slots": "expert buffer slots (groups x experts x capacity)",

@@ -37,6 +37,7 @@ from repro_torch.analysis.findings import Finding, load_baseline, split_baseline
 from repro_torch.core import batch as B
 from repro_torch.kernels import aig_sim as A
 from repro_torch.kernels import cim_logic as K
+from repro_torch.kernels import decode_attn  # noqa: F401  (registers its counter)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -48,6 +49,9 @@ MARKED = ("core/batch.py", "kernels/aig_sim.py", "kernels/cim_logic.py", "launch
           "serve/explore_service.py")
 #: the reference's counter -> the port's hand-kernel counters
 COUNTER_MAP = {"aig_eval_pallas": ("eval_mega", "sig_eval"), "cim_pallas": ("cim",)}
+#: the port's hand-kernel counters with no counterpart there (the
+#: reference's decode attention is jnp, no Pallas kernel)
+PORT_ONLY = {"decode_attn": "repro_torch.kernels.decode_attn"}
 
 # ---------------------------------------------------------------------------
 # fixtures: one seeded violation each
@@ -427,7 +431,9 @@ def test_kernel_names_and_owners_match_the_reference():
     mapped = set()
     for k in ref_owned:
         mapped.update(COUNTER_MAP.get(k, (k,)))
-    assert port_owned == mapped
+    assert port_owned == mapped | set(PORT_ONLY)
+    for k, m in PORT_ONLY.items():
+        assert registry.KERNEL_OWNERS[k] == m
     for k in ref_owned - set(COUNTER_MAP):
         assert registry.KERNEL_OWNERS[k] == RREG.KERNEL_OWNERS[k].replace("repro.", "repro_torch.", 1)
 

@@ -14,6 +14,7 @@ operands before upload.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -776,3 +777,122 @@ def test_softplus_backward_rule_on_a_card_dtensor(cuda_device):
         assert torch.equal(leaf.grad.to_local(), want)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Decode attention: the hand kernel against the plain version
+# ---------------------------------------------------------------------------
+
+#: (id, dtype, batch, slots, KV heads, n_rep, head_dim, kind, window, pos, sliced cache)
+DECODE_CASES = [
+    ("minicpm-cell-2048", torch.bfloat16, 32, 2176, 36, 1, 64, "attn", 0, 2048, False),
+    ("minicpm-cell-2175", torch.bfloat16, 32, 2176, 36, 1, 64, "attn", 0, 2175, False),
+    ("deepseek-cell", torch.bfloat16, 256, 384, 16, 1, 128, "attn", 0, 320, False),
+    ("gqa2-ring-before-wrap", torch.bfloat16, 4, 1024, 16, 2, 128, "local", 1024, 700, False),
+    ("gqa2-ring-after-wrap-sliced", torch.bfloat16, 4, 1024, 16, 2, 128, "local", 1024, 2500,
+     True),
+    ("mqa16-hd256-ring", torch.bfloat16, 4, 2048, 1, 16, 256, "local", 2048, 3000, False),
+    ("gqa7-long-split-by-shared-memory", torch.bfloat16, 40, 4096, 8, 7, 128, "attn", 0, 3999,
+     False),
+    ("gqa7-one-sequence-split", torch.bfloat16, 1, 8192, 8, 7, 128, "attn", 0, 8000, False),
+    ("windowed-not-ring", torch.bfloat16, 3, 300, 4, 1, 64, "local", 64, 250, False),
+    ("smoke-hd16-gqa4", torch.bfloat16, 2, 28, 1, 4, 16, "attn", 0, 21, False),
+    ("fp32-mha-hd64", torch.float32, 2, 100, 4, 1, 64, "attn", 0, 77, False),
+    ("fp32-mqa16-hd256-split", torch.float32, 2, 2048, 1, 16, 256, "local", 2048, 2300, False),
+    ("fp32-smoke-hd16-gqa2-ring", torch.float32, 2, 16, 2, 2, 16, "local", 16, 25, False),
+]
+
+
+def _decode_operands(dev, dtype, b, s, kv, n_rep, hd, sliced, seed):
+    """Seeded q, new k and v (B, 1, *, D) and a cache; ``sliced``: the cache
+    is the last ``s`` slots of a longer one (a ring cut from a prefill)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=dev).to(dtype)
+    q, kn, vn = mk(b, 1, kv * n_rep, hd), mk(b, 1, kv, hd), mk(b, 1, kv, hd)
+    extra = 7 if sliced else 0
+    k, v = mk(b, s + extra, kv, hd)[:, extra:], mk(b, s + extra, kv, hd)[:, extra:]
+    return q, kn, vn, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+def test_decode_attention_kernel_matches_plain_on_card(cuda_device, case):
+    """One kernel launch against `decode_attend` on the same CUDA tensors.
+    The caches after the append are bit-equal (RoPE rounds as the eager
+    ops do); the output lies within `decode_attn.tolerance` of the plain
+    version's, element by element (in bf16 one unit in the last place of
+    each output, plus 2^-8 of the mean output).  A launch that skips the
+    oldest valid slot must leave that bound."""
+    import types
+
+    from repro_torch.kernels import decode_attn as DA
+    from repro_torch.models import layers as L
+
+    _, dtype, b, s, kv, n_rep, hd, kind, window, pos, sliced = case
+    cfg = types.SimpleNamespace(n_heads=kv * n_rep, n_kv_heads=kv, window=window)
+    q, kn, vn, k, v = _decode_operands(cuda_device, dtype, b, s, kv, n_rep, hd, sliced, pos)
+    plain, kern = dict(k=k.clone(), v=v.clone()), dict(k=k, v=v)
+    skip = dict(k=k.clone(), v=v.clone())
+    want = L.decode_attend(q, kn, vn, plain, cfg, kind, 10000.0, pos)
+    before = DA.LAUNCHES["decode_attn"]
+    got = L.decode_attend_kernel(q, kn, vn, kern, cfg, kind, 10000.0, pos)
+    torch.cuda.synchronize()
+    assert DA.LAUNCHES["decode_attn"] == before + 1
+    assert kern["k"].data_ptr() == k.data_ptr()  # in place, the slice too
+    for name in ("k", "v"):
+        assert torch.equal(_bits(kern[name].contiguous()), _bits(plain[name].contiguous())), name
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = DA.tolerance(want, plain["v"])
+    gap = (got.float() - want.float()).abs()
+    print(f"{case[0]}: max |kernel - plain| = {float(gap.max()):.3e}, at most "
+          f"{float((gap / tol).max()):.4f} of the tolerance")
+    assert bool((gap <= tol).all())
+    first, n = L.decode_window(kind, cfg, s, pos)
+    inv_freq = L.rope_inv_freq(hd, 10000.0, cuda_device)
+    off = DA.decode_attention(q, kn, vn, skip["k"], skip["v"], inv_freq, pos, (first + 1) % s,
+                              n - 1, 1.0 / math.sqrt(hd))
+    skipped = float(((off.float() - want.float()).abs() / tol).max())
+    print(f"{case[0]}: the oldest slot skipped, {skipped:.2f}x the tolerance")
+    assert skipped > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-27b", "recurrentgemma-9b",
+                                  "qwen1.5-4b"])
+def test_decode_step_launches_the_kernel_once_an_attention_layer(cuda_device, arch):
+    """A bf16 smoke model's `decode_step` on the card launches the kernel
+    once per attention layer (global, local ring and windowed) and no
+    more; the tracer's ``attn.decode_kernel`` counts the same only while
+    it is on."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import decode_attn as DA
+    from repro_torch.models.config import ParallelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.runtime import trace
+    from repro_torch.serve.engine import align_prefill_caches
+
+    cfg = smoke_config(arch)
+    m = Model(cfg, ParallelConfig(), compute_dtype=torch.bfloat16, q_chunk=8, kv_chunk=8,
+              device=cuda_device).init(torch.Generator(device=cuda_device).manual_seed(0))
+    n_attn = sum(k in ("attn", "local", "xattn") for k in m.kinds)
+    assert n_attn
+    B, P = 2, 20
+    tt = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P + 4)),
+                         device=cuda_device)
+    with torch.inference_mode():
+        _, caches = m.prefill(dict(tokens=tt[:, :P]))
+        caches = align_prefill_caches(m, caches, P, P + 4, batch=B)
+        before = DA.LAUNCHES["decode_attn"]
+        _, caches = m.decode_step(caches, tt[:, P], P)
+        assert DA.LAUNCHES["decode_attn"] == before + n_attn
+        trace.reset()
+        trace.enable()
+        try:
+            _, caches = m.decode_step(caches, tt[:, P + 1], P + 1)
+        finally:
+            trace.disable()
+        assert trace.collect()["counters"].get("attn.decode_kernel") == n_attn
+        trace.reset()
+        _, caches = m.decode_step(caches, tt[:, P + 2], P + 2)
+        assert trace.collect()["counters"] == {}
+        assert DA.LAUNCHES["decode_attn"] == before + 3 * n_attn

@@ -101,7 +101,8 @@ def test_spans_nest_with_parents_and_wave_ids_over_serve():
             assert parent(s) in ("model.prefill", "model.decode_step"), s
     names = by_name(rec)
     assert set(names) == set(trace.SPANS) - {n for n in trace.SPANS if n.startswith("train.")}
-    assert set(rec["counters"]) == set(trace.COUNTERS)
+    # every counter but the decode kernel's launches, which the CPU makes none of
+    assert set(rec["counters"]) == set(trace.COUNTERS) - {"attn.decode_kernel"}
     waves = names["engine.wave"]
     assert [w["attrs"]["uids"] for w in waves] == [[0, 1], [2, 3]]
     assert [w["attrs"]["max_new"] for w in waves] == [[3, 5], [3, 5]]
