@@ -1,11 +1,33 @@
 """A configuration file of the benchmark, read into the shapes every other
-part of it uses.
+part of it uses, and the architecture that reads it.
 
 A file under ``configs/`` holds the model's published ``config.json`` keys
 as the port runs them (``reduced`` names the ones that differ from the
 source) and a few keys of the port's own (``head_dim``,
-``vocab_pad_multiple``, ``capacity_factor``).  `Arch` is that file as
-numbers; the reference, the counts and the weights read nothing else.
+``vocab_pad_multiple``, ``capacity_factor``).  Its optional ``"arch"`` key
+names the architecture, a module ``archs/<arch>.py`` (``decoder`` where
+the key is absent), which provides:
+
+- ``from_dict(config)``: the file as numbers, an object with at least
+  ``arch`` (the module's name), ``name``, ``vocab_size`` and ``is_moe``
+  (its batch is one routing group, so a serving check judges whole waves);
+- ``kinds(a, tok_scale=1.0)``: ``(kind, stacked shape, std)`` of every
+  kind of leaf, in draw order (`weights`);
+- ``GLOBAL``: the kinds held once (one leaf each); every other kind is
+  stacked over the layers that hold it, one leaf a layer;
+- ``model_config(a)`` and ``param_name(a, kind, index)``: the port's
+  ``ModelConfig`` and the parameter that holds one leaf (`port`);
+- ``prefill_flops``, ``decode_flops``, ``decode_bytes``, ``train_flops``:
+  the work a step needs, with the signatures of `counts`;
+
+Its plain reference is ``reference/<arch>.py``, of the same name, which
+provides ``served_logits``, ``hidden`` and ``unembed`` as
+`reference.decoder` does (the training reference reads the last two).  It
+is found by that name alone (`reference`): the architecture module reaches
+the program through `port`, and the reference never loads it.
+
+`Arch` is the decoder's numbers (`read_decoder`); the reference, the counts
+and the weights read nothing else.
 """
 
 from __future__ import annotations
@@ -15,7 +37,10 @@ import json
 import math
 import pathlib
 
+from . import found
+
 HERE = pathlib.Path(__file__).resolve().parent
+DEFAULT = "decoder"  # the architecture of a configuration file without an "arch" key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +65,7 @@ class Arch:
     first_dense_layers: int = 0
     capacity_factor: float = 1.25
     norm_topk_prob: bool = True
+    arch: str = DEFAULT  # the module under archs/ that read the file
 
     @property
     def padded_vocab(self) -> int:
@@ -65,8 +91,9 @@ class Arch:
         return min(max(cap, 8), n_tokens * self.top_k)
 
 
-def from_dict(c: dict) -> Arch:
-    """The published keys (Hugging Face names) of a configuration file."""
+def read_decoder(c: dict) -> Arch:
+    """The published keys (Hugging Face names) of a decoder's configuration
+    file."""
     n_exp = int(c.get("n_routed_experts") or 0)
     hd = int(c.get("head_dim") or c["hidden_size"] // c["num_attention_heads"])
     return Arch(
@@ -90,10 +117,31 @@ def from_dict(c: dict) -> Arch:
         first_dense_layers=int(c.get("first_k_dense_replace") or 0),
         capacity_factor=float(c.get("capacity_factor", 1.25)),
         norm_topk_prob=bool(c.get("norm_topk_prob", True)),
+        arch=c.get("arch", DEFAULT),
     )
 
 
-def load(name: str) -> Arch:
+def module_named(name: str):
+    """The architecture module ``archs/<name>.py``."""
+    return found.load("archs", name)
+
+
+def module(a):
+    """The architecture module that read ``a``."""
+    return module_named(a.arch)
+
+
+def reference(a):
+    """The plain reference of ``a``'s architecture, ``reference/<arch>.py``."""
+    return found.load("reference", a.arch)
+
+
+def from_dict(c: dict):
+    """A configuration file as numbers, read by the architecture it names."""
+    return module_named(c.get("arch", DEFAULT)).from_dict(c)
+
+
+def load(name: str):
     return from_dict(load_dict(name))
 
 

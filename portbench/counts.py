@@ -8,6 +8,10 @@ attends read once, its new keys and values written once, and its logits
 written once.  Masked blocks, idle capacity slots and padded vocabulary
 rows that the program computes anyway are not counted.  The rooflines and
 utilizations of every later kernel read these counts.
+
+The peaks and `least_seconds` are every architecture's; the rest is the
+decoder's (`archs/decoder.py`).  A reader asks the architecture of the
+record's numbers for its counts (`arch.module`), with these signatures.
 """
 
 from __future__ import annotations

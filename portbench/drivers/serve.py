@@ -18,7 +18,8 @@ other call into the model is a span synchronized on both sides
 and, for an MoE, the experts its live tokens route to in each layer).
 
 The check (after the window, with the program freed): the plain fp32
-reference, with weights it draws itself, runs the padded prompts and the
+reference of the configuration's architecture (`arch.reference`), with
+weights it draws itself, runs the padded prompts and the
 tokens fed back at each decode step, and reads how far below its best
 logit each served token's logit lies.  A dense model is judged on a
 sample of requests from the seed, the longest among them; an MoE on one
@@ -36,9 +37,9 @@ import time
 import numpy as np
 import torch
 
-from .. import port, profiling, traffic, weights
-from ..reference import decoder
+from .. import arch, port, profiling, traffic, weights
 
+TRAFFIC = ("closed_waves",)  # the traffic kinds this driver takes
 CHUNK = 64  # attention's query and key chunks, as launch/serve.py builds the model
 ROWS_AT_ONCE = 2  # requests the reference runs together (a 2,176-token fp32 row's scores are 0.7 GB)
 PROFILE_STEPS = (8, 16)  # decode steps of the extra wave under the profiler; the others are spans
@@ -272,12 +273,14 @@ def check(ctx: dict, waves: list[dict], control: bool = False) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     W = dict(weights.draw(a, ctx["seed"], dev, torch.bfloat16, tok_scale(ctx["cell"])))
+    reference = arch.reference(a)
     widest, widest_ctl, judged, total, total_ctl = 0.0, 0.0, 0, 0.0, 0.0
     for rows, served in judged_rows(ctx, waves):
         toks = torch.as_tensor(rows, device=dev)
-        ref = decoder.served_logits(a, W, toks, pad)
+        ref = reference.served_logits(a, W, toks, pad)
         best = ref.max(-1).values
-        ctl_first = decoder.served_logits(a, W, toks, pad, lowp=True).argmax(-1) if control else None
+        ctl_first = (reference.served_logits(a, W, toks, pad, lowp=True).argmax(-1)
+                     if control else None)
         for i, s in enumerate(served):
             m = len(s)
             got = torch.as_tensor(s, device=dev)

@@ -27,9 +27,10 @@ import time
 import numpy as np
 import torch
 
-from .. import port, profiling, traffic, weights
+from .. import arch, port, profiling, traffic, weights
 from ..reference import train as ref
 
+TRAFFIC = ("synthetic_lm",)  # the traffic kinds this driver takes
 CHUNK = 256  # attention's query and key chunks, as launch/train.py builds the model
 FOLLOWED = 3  # steps the reference follows
 
@@ -76,7 +77,8 @@ def _window(ctx: dict):
         state["params"], state["opt"], metrics = step_fn(state["params"], state["opt"], feed(i))
         return float(metrics["loss"])  # the launcher's read-back ends the step
 
-    names = {key: port.param_name(a, kind, i) for key, kind, i in weights.leaves(a)}
+    param_name = arch.module(a).param_name
+    names = {key: param_name(a, kind, i) for key, kind, i in weights.leaves(a)}
     losses = [step(0)]
     m = state["opt"]["m"]
     grad = {k: float(m[n].norm()) / (1 - opt_cfg.b1) for k, n in names.items()}
@@ -142,6 +144,7 @@ def follow(ctx: dict, lowp: bool = False) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     W = {k: t.requires_grad_(True) for k, t in weights.draw(a, seed, dev, torch.float32)}
+    glob = arch.module(a).GLOBAL
     opt = ref.AdamW(W, **cell["program"]["adamw"])
     out = dict(losses=[])
     for i in range(FOLLOWED):
@@ -150,10 +153,10 @@ def follow(ctx: dict, lowp: bool = False) -> dict:
         out["losses"].append(ref.loss_and_grads(a, W, raw[:, :-1], raw[:, 1:], lowp))
         grads = opt.update(W, ref.wsd_lr(i, *schedule_args(cell)))
         if i == 0:
-            out["grad"] = ref.leaf_norms(a, grads)
+            out["grad"] = ref.leaf_norms(grads, glob)
         del grads
     out["change"] = {}
     with torch.no_grad():
         for kind, t0 in weights.draw(a, seed, dev, torch.float32):
-            out["change"].update(ref.kind_norms(kind, W[kind] - t0))
+            out["change"].update(ref.kind_norms(kind, W[kind] - t0, glob))
     return out

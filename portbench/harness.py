@@ -3,22 +3,24 @@ file, its driver and its metrics' readers, each a file of its own.
 
 ``workloads/<cell>.json`` names the configuration, the driver, the
 traffic parameters, the program's settings and the check's limits;
-``configs/<config>.json`` the model; ``drivers/<driver>.py`` the path it
-drives (``run(ctx) -> (record, checks)``); ``metrics/<metric>.py`` one
-metric (``read(record) -> number or None``).  `BENCHMARK.json` says which
+``configs/<config>.json`` the model, and through its ``arch`` key the
+architecture (``archs/<arch>.py``, `arch`); ``drivers/<driver>.py`` the
+path it drives (``run(ctx) -> (record, checks)``, and ``TRAFFIC``, the
+traffic kinds it takes); ``metrics/<metric>.py`` one metric
+(``read(record) -> number or None``).  `BENCHMARK.json` says which
 metrics a cell reports: its ``end_to_end`` ones in a plain run, its
 ``per_layer`` ones in a traced run.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import math
 import pathlib
 import sys
 
 from . import arch as arch_mod
+from . import found
 
 HERE = pathlib.Path(__file__).resolve().parent
 
@@ -31,26 +33,12 @@ def load_workload(name: str) -> dict:
         return json.load(f)
 
 
-def _load_file(kind: str, name: str):
-    path = HERE / kind / f"{name}.py"
-    if not path.is_file():
-        raise FileNotFoundError(f"no {kind[:-1]} {name!r}: {path} is missing")
-    mod_name = f"portbench.{kind}.{name.replace('.', '_').replace('-', '_')}"
-    if mod_name in sys.modules:
-        return sys.modules[mod_name]
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[mod_name] = mod
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def driver(name: str):
-    return _load_file("drivers", name)
+    return found.load("drivers", name)
 
 
 def metric(name: str):
-    return _load_file("metrics", name)
+    return found.load("metrics", name)
 
 
 def cell_metrics(bench: dict, cell: str, trace: bool) -> list[tuple[str, str]]:
@@ -73,9 +61,10 @@ def read_metrics(wanted: list[tuple[str, str]], rec: dict) -> dict:
 
 def run_cell(workload: dict, config: dict, seed: int, seconds: float, trace: bool,
              device, t_start: float, **extra) -> tuple[dict, dict]:
-    """Drive one run: ``(record, checks)``.  ``extra`` reaches the driver's
-    context (``fault``: a hook the tests break the timed path with;
-    ``control``)."""
+    """Drive one run: ``(record, checks)``.  ``ctx["arch"]`` is the
+    configuration as numbers, read by the architecture it names.  ``extra``
+    reaches the driver's context (``fault``: a hook the tests break the
+    timed path with; ``control``)."""
     ctx = dict(arch=arch_mod.from_dict(config), cell=workload, seed=seed, seconds=seconds,
                trace=trace, device=device, t_start=t_start, **extra)
     return driver(workload["driver"]).run(ctx)

@@ -1,12 +1,10 @@
-"""mfu.train: `counts.train_flops` (6 x the matmul weights, the
-unembedding and causal attention, recomputation not counted) of every step
-in the window over its seconds times 989 TFLOP/s."""
+"""mfu.train: the architecture's ``train_flops`` (the decoder's
+`counts.train_flops`: 6 x the matmul weights, the unembedding and causal
+attention, recomputation not counted) of every step in the window over its
+seconds times 989 TFLOP/s (`readers.train_mfu_pct`)."""
 
-from portbench import counts
+from portbench import readers
 
 
 def read(rec):
-    if not rec.get("steps"):
-        return None
-    flops = rec["steps"] * counts.train_flops(rec["arch"], rec["batch"], rec["seq"])
-    return 100.0 * flops / (rec["window_s"] * counts.BF16_FLOPS)
+    return readers.train_mfu_pct(rec)

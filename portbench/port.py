@@ -4,18 +4,21 @@ configuration file and loaded with the benchmark's weights.
 Everything the benchmark takes from `repro_torch` passes through here and
 the drivers: `Model` (as `launch/serve.py` and `launch/train.py` build
 it), `ServeEngine`, `make_train_step` with `adamw_init` and the WSD
-schedule.
+schedule.  `build` and `load` ask the configuration's architecture
+(`arch.module`) for the ``ModelConfig`` and the parameters' names;
+`model_config` and `param_name` here are the decoder's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import weights
+from . import arch, weights
 from .arch import Arch
 
 
 def model_config(a: Arch):
+    """The decoder's ``ModelConfig``."""
     from repro_torch.models.config import ModelConfig
 
     return ModelConfig(
@@ -29,7 +32,7 @@ def model_config(a: Arch):
 
 
 def param_name(a: Arch, kind: str, index: "int | None") -> str:
-    """The program's parameter of one leaf (`weights.leaves`)."""
+    """The decoder's parameter of one leaf (`weights.leaves`)."""
     if kind in ("tok", "unembed"):
         return f"embed.{kind}"
     if kind == "final_norm":
@@ -44,23 +47,25 @@ def param_name(a: Arch, kind: str, index: "int | None") -> str:
 
 
 @torch.no_grad()
-def load(model, a: Arch, seed: int, dtype: torch.dtype, tok_scale: float = 1.0) -> None:
+def load(model, a, seed: int, dtype: torch.dtype, tok_scale: float = 1.0) -> None:
     """Copy the benchmark's draw (`weights.draw`) into the program's params,
     one stacked kind at a time."""
+    mod = arch.module(a)
+    name = mod.param_name
     for kind, t in weights.draw(a, seed, model.device, dtype, tok_scale):
-        if kind in weights.GLOBAL:
-            model.get_parameter(param_name(a, kind, None)).copy_(t)
+        if kind in mod.GLOBAL:
+            model.get_parameter(name(a, kind, None)).copy_(t)
         else:
             for i in range(t.shape[0]):
-                model.get_parameter(param_name(a, kind, i)).copy_(t[i])
+                model.get_parameter(name(a, kind, i)).copy_(t[i])
         del t
 
 
-def build(a: Arch, device, param_dtype: torch.dtype, chunk: int):
+def build(a, device, param_dtype: torch.dtype, chunk: int):
     """The port's `Model` on ``device`` (params allocated, not drawn), with the
     launchers' `ParallelConfig` (remat of each block, ``"block"``)."""
     from repro_torch.models.config import ParallelConfig
     from repro_torch.models.model import Model
 
-    return Model(model_config(a), ParallelConfig(), q_chunk=chunk, kv_chunk=chunk,
+    return Model(arch.module(a).model_config(a), ParallelConfig(), q_chunk=chunk, kv_chunk=chunk,
                  device=device, param_dtype=param_dtype)

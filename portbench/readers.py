@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import counts
+from . import arch, counts
 
 
 def per_second(rec: dict, key: str):
@@ -46,10 +46,11 @@ def serve_window_flops(rec: dict) -> float:
     attends.  Pads, and the decode slots of requests that had finished, are
     computed by the program but not counted."""
     a, total = rec["arch"], 0.0
+    c = arch.module(a)
     for w in rec["waves"]:
         for n, m in zip(w["prompt_len"], w["max_new"]):
-            total += counts.prefill_flops(a, 1, n)
-            total += sum(counts.decode_flops(a, 1, n + t + 1) for t in range(m - 1))
+            total += c.prefill_flops(a, 1, n)
+            total += sum(c.decode_flops(a, 1, n + t + 1) for t in range(m - 1))
     return total
 
 
@@ -66,15 +67,24 @@ def decode_roofline_pct(rec: dict):
     if not spans:
         return None
     a = rec["arch"]
+    c = arch.module(a)
     least = sum(counts.least_seconds(
-        counts.decode_flops(a, s["live"], s["attended"]),
-        counts.decode_bytes(a, s["live"], s["attended"], s.get("experts_hit"))) for s in spans)
+        c.decode_flops(a, s["live"], s["attended"]),
+        c.decode_bytes(a, s["live"], s["attended"], s.get("experts_hit"))) for s in spans)
     return 100.0 * least / (sum(s["ms"] for s in spans) / 1e3)
 
 
 def prefill_ms(rec: dict):
     ms = rec.get("prefill_ms")
     return float(np.mean(ms)) if ms else None
+
+
+def train_mfu_pct(rec: dict):
+    if not rec.get("steps"):
+        return None
+    a = rec["arch"]
+    flops = rec["steps"] * arch.module(a).train_flops(a, rec["batch"], rec["seq"])
+    return 100.0 * flops / (rec["window_s"] * counts.BF16_FLOPS)
 
 
 def slot_waste_pct(rec: dict):

@@ -23,11 +23,13 @@ correctness check, one precision below the bfloat16 the program states.
 from __future__ import annotations
 
 import math
+from typing import TYPE_CHECKING
 
 import torch
 import torch.nn.functional as F
 
-from ..arch import Arch
+if TYPE_CHECKING:
+    from ..arch import Arch
 
 
 def _q8(x: torch.Tensor) -> torch.Tensor:

@@ -3,20 +3,25 @@ entropy, gradients by autograd, clipping by the global norm, and AdamW
 with bias correction and decoupled weight decay on every leaf, under the
 warmup-stable-decay schedule (MiniCPM, arXiv:2404.06395 §4).
 
-Leaves are the stacked kinds of `portbench.weights`, as float32 tensors;
-the per-leaf readings split them back into one leaf per layer, the unit
-the program keeps.
+The forward is the configuration's architecture's plain reference,
+``reference/<arch>.py`` (its ``hidden`` and ``unembed``), found by name:
+no module of the architecture is loaded.  Leaves are the stacked kinds of
+`portbench.weights`, as float32 tensors; the per-leaf readings split them
+back into one leaf per layer, the unit the program keeps, but for the
+architecture's global kinds, which the caller names.
 """
 
 from __future__ import annotations
 
 import math
+from typing import TYPE_CHECKING
 
 import torch
 
-from ..arch import Arch
-from ..weights import GLOBAL, kinds
-from . import decoder
+from .. import found
+
+if TYPE_CHECKING:
+    from ..arch import Arch
 
 
 def wsd_lr(step: int, peak: float, warmup: int, stable: int, decay: int,
@@ -34,14 +39,15 @@ def loss_and_grads(a: Arch, W: dict, tokens: torch.Tensor, labels: torch.Tensor,
     full-size batch fits)."""
     if a.is_moe:
         raise NotImplementedError("the reference trains dense decoders only")
+    plain = found.load("reference", a.arch)
     n = labels.numel()
     total = 0.0
     for r in range(tokens.shape[0]):
-        x = decoder.hidden(a, W, tokens[r:r + 1], lowp=lowp, checkpoint=True)
+        x = plain.hidden(a, W, tokens[r:r + 1], lowp=lowp, checkpoint=True)
         nll = 0.0
         for c in range(0, x.shape[1], 512):  # the logits a chunk at a time
             def chunk(xc, lc):
-                logits = decoder.unembed(a, W, xc, lowp)
+                logits = plain.unembed(a, W, xc, lowp)
                 return (torch.logsumexp(logits, -1)
                         - logits.gather(-1, lc[..., None])[..., 0]).sum()
             nll = nll + torch.utils.checkpoint.checkpoint(
@@ -77,17 +83,19 @@ class AdamW:
         return g
 
 
-def kind_norms(kind: str, t: torch.Tensor) -> dict:
-    """L2 norms of one stacked kind's leaves, keyed ``kind`` (a global kind)
-    or ``kind.<index>`` (one leaf a layer), as host floats."""
+def kind_norms(kind: str, t: torch.Tensor, global_kinds) -> dict:
+    """L2 norms of one stacked kind's leaves, keyed ``kind`` (one of
+    ``global_kinds``, the architecture's ``GLOBAL``) or ``kind.<index>``
+    (one leaf a layer), as host floats."""
     t = t.detach().double()
-    if kind in GLOBAL:
+    if kind in global_kinds:
         return {kind: float(t.norm())}
     return {f"{kind}.{i}": v for i, v in enumerate(t.flatten(1).norm(dim=1).tolist())}
 
 
-def leaf_norms(a: Arch, tree: dict) -> dict:
+def leaf_norms(tree: dict, global_kinds) -> dict:
+    """`kind_norms` of every kind of ``tree``, in its order (the draw's)."""
     out = {}
-    for kind, _, _ in kinds(a):
-        out.update(kind_norms(kind, tree[kind]))
+    for kind, t in tree.items():
+        out.update(kind_norms(kind, t, global_kinds))
     return out

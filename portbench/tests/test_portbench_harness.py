@@ -37,8 +37,7 @@ def test_workload_file_names_what_exists(name):
     assert hasattr(harness.driver(w["driver"]), "run")
     assert w["chips"] in (1, 4) and _text_ok(w["why"])
     assert set(w["check"]["limits"])
-    kind = w["traffic"]["kind"]
-    assert kind == {"serve": "closed_waves", "train": "synthetic_lm"}[w["driver"]]
+    assert w["traffic"]["kind"] in harness.driver(w["driver"]).TRAFFIC
 
 
 @pytest.mark.parametrize("name", CONFIGS)

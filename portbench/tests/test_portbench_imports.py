@@ -1,7 +1,7 @@
 """No module under ``portbench/`` imports JAX or the JAX package (top-level
 names compared whole: ``repro_torch`` is not ``repro``), and nothing the
-reference imports, directly or through other ``portbench`` modules,
-imports the program."""
+reference loads, directly, through other ``portbench`` modules or by name
+(`found.load`), imports the program."""
 
 import ast
 import pathlib
@@ -18,9 +18,21 @@ def _modules():
     return sorted(p for p in BENCH.rglob("*.py") if "__pycache__" not in p.parts)
 
 
-def _imports(path: pathlib.Path):
-    """(top-level name, or the portbench module a relative import names)."""
+class _DropTypeChecking(ast.NodeTransformer):
+    """Drops ``if TYPE_CHECKING:`` blocks, whose imports never run."""
+
+    def visit_If(self, node):
+        test = node.test
+        name = test.id if isinstance(test, ast.Name) else getattr(test, "attr", None)
+        return node.orelse or None if name == "TYPE_CHECKING" else self.generic_visit(node)
+
+
+def _imports(path: pathlib.Path, runtime: bool = False):
+    """(top-level name, or the portbench module a relative import names);
+    ``runtime``: only the imports that run."""
     tree = ast.parse(path.read_text())
+    if runtime:
+        tree = _DropTypeChecking().visit(tree)
     pkg = path.relative_to(BENCH.parent).with_suffix("").parts[:-1]
     out = set()
     for node in ast.walk(tree):
@@ -52,20 +64,54 @@ def _file_of(mod: str):
     return None
 
 
-def test_reference_imports_nothing_of_the_program():
-    seen, todo = set(), sorted((BENCH / "reference").glob("*.py"))
+def _found_by_name(path: pathlib.Path):
+    """The files ``path`` loads by name: every ``<kind>/*.py`` where it calls
+    ``found.load("<kind>", ...)``."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        f = getattr(node, "func", None)
+        if (isinstance(node, ast.Call) and isinstance(f, ast.Attribute) and f.attr == "load"
+                and isinstance(f.value, ast.Name) and f.value.id == "found" and node.args
+                and isinstance(node.args[0], ast.Constant)):
+            out += sorted((BENCH / node.args[0].value).glob("*.py"))
+    return out
+
+
+def _walk(start):
+    """``(files reached, imports of the program among them)`` from ``start``:
+    the imports that run, and the files loaded by name."""
+    seen, todo, program = set(), list(start), []
     while todo:
         path = todo.pop()
         if path in seen:
             continue
         seen.add(path)
-        for mod in _imports(path):
-            assert mod.split(".")[0] != "repro_torch", f"{path} imports {mod}"
+        todo += _found_by_name(path)
+        for mod in _imports(path, runtime=True):
+            if mod.split(".")[0] == "repro_torch":
+                program.append(f"{path.relative_to(BENCH)}: {mod}")
             if mod.split(".")[0] == "portbench":
                 f = _file_of(mod)
                 if f is not None:
                     todo.append(f)
-    assert BENCH / "weights.py" in seen and BENCH / "arch.py" in seen
+    return seen, program
+
+
+def test_reference_imports_nothing_of_the_program():
+    refs = sorted((BENCH / "reference").glob("*.py"))
+    seen, program = _walk(refs)
+    assert program == []
+    # the training reference finds the architecture's reference by name
+    assert BENCH / "found.py" in seen and set(refs) <= seen
+
+
+def test_the_walk_follows_what_is_loaded_by_name():
+    """From `arch`, which loads the architecture modules by name, the walk
+    reaches the decoder's module, `port` and the program: a reference that
+    imported `arch` would fail the test above."""
+    seen, program = _walk([BENCH / "arch.py"])
+    assert {BENCH / "archs" / "decoder.py", BENCH / "port.py"} <= seen
+    assert any(p.startswith("port.py: repro_torch") for p in program), program
 
 
 def test_a_run_loads_no_jax():

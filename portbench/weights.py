@@ -1,7 +1,8 @@
 """Random weights of a cell, drawn on the device from the seed.
 
 One `torch.randn` call per kind of leaf, stacked over the layers that hold
-it, in a fixed order (`kinds`), on a generator seeded from ``--seed``.
+it, in the fixed order of the architecture's ``kinds`` (`kinds` here for
+the decoder), on a generator seeded from ``--seed``.
 Drawing again with the same seed on the same device gives the same values,
 so the program is loaded from one draw and the reference makes its own
 once the program has been freed: it takes nothing the program made.
@@ -27,11 +28,9 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from . import arch
 from .arch import Arch
 
-
-#: kinds held once; every other kind is stacked over the layers that hold it
-GLOBAL = ("tok", "final_norm", "unembed")
 
 
 def sub_seed(seed: int, stream: str) -> int:
@@ -42,8 +41,9 @@ def sub_seed(seed: int, stream: str) -> int:
 
 
 def kinds(a: Arch, tok_scale: float = 1.0) -> list[tuple[str, tuple[int, ...], float]]:
-    """``(kind, stacked shape, std)`` of every kind of leaf, in draw order.
-    Per-layer kinds lead with the number of layers that hold them."""
+    """The decoder's ``(kind, stacked shape, std)`` of every kind of leaf, in
+    draw order.  Per-layer kinds lead with the number of layers that hold
+    them."""
     d, hd, L = a.d_model, a.head_dim, a.n_layers
     out = [
         ("tok", (a.padded_vocab, d), tok_scale / math.sqrt(d)),
@@ -76,21 +76,24 @@ def kinds(a: Arch, tok_scale: float = 1.0) -> list[tuple[str, tuple[int, ...], f
     return out
 
 
-def draw(a: Arch, seed: int, device, dtype: torch.dtype,
+def draw(a, seed: int, device, dtype: torch.dtype,
          tok_scale: float = 1.0) -> Iterator[tuple[str, torch.Tensor]]:
-    """``(kind, stacked tensor)`` in `kinds` order; each is drawn when asked
-    for, so a caller that copies and drops it holds one at a time."""
+    """``(kind, stacked tensor)`` in the order of ``a``'s architecture's
+    ``kinds``; each is drawn when asked for, so a caller that copies and
+    drops it holds one at a time."""
     g = torch.Generator(device=device).manual_seed(sub_seed(seed, "weights"))
-    for kind, shape, std in kinds(a, tok_scale):
+    for kind, shape, std in arch.module(a).kinds(a, tok_scale):
         t = torch.randn(shape, generator=g, device=device, dtype=dtype)
         yield kind, t.mul_(std)
 
 
-def leaves(a: Arch) -> Iterator[tuple[str, str, int | None]]:
+def leaves(a) -> Iterator[tuple[str, str, int | None]]:
     """``(key, kind, index)`` of every leaf the program keeps: a global kind
-    once (index None), a stacked kind once for each layer that holds it."""
-    for kind, shape, _ in kinds(a):
-        if kind in GLOBAL:
+    of ``a``'s architecture (its ``GLOBAL``) once (index None), a stacked
+    kind once for each layer that holds it."""
+    mod = arch.module(a)
+    for kind, shape, _ in mod.kinds(a):
+        if kind in mod.GLOBAL:
             yield kind, kind, None
         else:
             for i in range(shape[0]):
