@@ -22,11 +22,21 @@ class ModelConfig:
     qkv_bias: bool = False
     window: int = 0  # local-attention window (0 = n/a)
     # per-layer block pattern, cycled over n_layers:
-    #   "attn" (global), "local", "ssm" (mamba2), "rglru" (griffin block)
+    #   "attn" (global), "local", "ssm" (mamba2), "rglru" (griffin block),
+    #   "mla" (multi-head latent attention, DeepSeek-V2/V3)
     pattern: tuple[str, ...] = ("attn",)
     logit_softcap: float = 0.0
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+
+    # multi-head latent attention ("mla" layers): q is one projection to
+    # n_heads x (qk_nope_head_dim + qk_rope_head_dim); keys and values come
+    # from a normed latent of kv_lora_rank and one rotary key of
+    # qk_rope_head_dim shared by every head
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # MoE
     n_experts: int = 0
@@ -35,6 +45,12 @@ class ModelConfig:
     moe_d_ff: int = 0
     first_dense_layers: int = 0
     capacity_factor: float = 1.25
+    # the router: "softmax" probabilities, or "sigmoid" scores whose top-k
+    # are chosen over the scores plus a per-expert bias (a ``router_bias``
+    # leaf) and whose gates are the chosen scores renormalized; the gates
+    # times ``routed_scale``
+    router_scoring: str = "softmax"
+    routed_scale: float = 1.0
 
     # SSM (mamba2 / SSD)
     ssm_state: int = 0
@@ -88,8 +104,10 @@ class ModelConfig:
         total = v * d  # embedding
         if not self.tie_embeddings:
             total += v * d
-        for kind in self.layer_kinds:
-            if kind in ("attn", "local"):
+        for i, kind in enumerate(self.layer_kinds):
+            if kind == "mla":
+                total += self._mla_params() + self._layer_ffn_params(d, i)
+            elif kind in ("attn", "local"):
                 total += d * hd * (self.n_heads + 2 * self.n_kv_heads)  # qkv
                 total += self.n_heads * hd * d  # o
                 total += self._ffn_params(d)
@@ -104,6 +122,21 @@ class ModelConfig:
                 total += self._ffn_params(d)
             total += 2 * d  # norms
         return total
+
+    def _mla_params(self) -> int:
+        """An ``mla`` layer's attention: q, the latent and rotary key, the
+        latent's norm, its expansion to keys and values, and o."""
+        d, h, r = self.d_model, self.n_heads, self.kv_lora_rank
+        dn, dr, dv = self.qk_nope_head_dim, self.qk_rope_head_dim, self.v_head_dim
+        return d * h * (dn + dr) + d * (r + dr) + r + r * h * (dn + dv) + h * dv * d
+
+    def _layer_ffn_params(self, d: int, layer: int) -> int:
+        """Layer ``layer``'s FFN: dense before ``first_dense_layers`` (or in a
+        dense model), else the MoE with the router's bias."""
+        if self.is_moe and layer >= self.first_dense_layers:
+            bias = self.n_experts if self.router_scoring == "sigmoid" else 0
+            return self._ffn_params(d) + bias
+        return 3 * d * self.d_ff
 
     def _ffn_params(self, d: int) -> int:
         if self.is_moe:
@@ -123,8 +156,8 @@ class ModelConfig:
         full = self.n_params()
         routed_all = 0
         routed_active = 0
-        for kind in self.layer_kinds:
-            if kind in ("attn", "local"):
+        for i, kind in enumerate(self.layer_kinds):
+            if kind in ("attn", "local") or (kind == "mla" and i >= self.first_dense_layers):
                 routed_all += self.n_experts * 3 * d * e_ff
                 routed_active += self.top_k * 3 * d * e_ff
         return full - routed_all + routed_active

@@ -3,8 +3,10 @@
 Mirrors the reference's ``models/layers.py`` function by function: param
 specs, norms, rope, chunked online-softmax attention (train / prefill)
 and single-token decode attention against a KV cache (on CUDA tensors off
-a mesh one hand kernel, `kernels.decode_attn`), the decoder's
-cross-attention over encoder keys and values, the gated MLP, the
+a mesh one hand kernel, `kernels.decode_attn`), multi-head latent
+attention (not absorbed over the sequence, absorbed over a latent cache
+at decode), the decoder's cross-attention over encoder keys and values,
+the gated MLP, the
 fine-grained MoE FFN (shared + routed top-k experts, sort-based dispatch
 into a capacity buffer), and the (padded-vocab) embedding.
 
@@ -336,7 +338,7 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def chunked_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Skv, H, D)  (already GQA-repeated)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, Skv, H, Dv)
     q_offset: int = 0,
     causal: bool = True,
     window: int = 0,
@@ -350,10 +352,12 @@ def chunked_attention(
     chunks ride along as a batch dim and the kv chunks are the loop, with
     the same per-chunk arithmetic (masked blocks computed, as there).
     Causal masking is by absolute position (q position = q_offset + index);
-    ``cross`` (queries over another sequence's keys) turns it off.
+    ``cross`` (queries over another sequence's keys) turns it off.  The
+    values may be narrower than the keys (latent attention's 128 against
+    192); the scale is the keys' ``1 / sqrt(D)``.  Returns (B, Sq, H, Dv).
     """
     b, sq, h, d = q.shape
-    skv = k.shape[1]
+    skv, dv = k.shape[1], v.shape[-1]
     q_chunk = _pick_chunk(sq, q_chunk)
     kv_chunk = _pick_chunk(skv, kv_chunk)
     nq, nkv = sq // q_chunk, skv // kv_chunk
@@ -361,14 +365,14 @@ def chunked_attention(
 
     qc = q.reshape(b, nq, q_chunk, h, d).permute(1, 0, 3, 2, 4) * scale  # (nq,B,H,qc,D)
     kc = k.reshape(b, nkv, kv_chunk, h, d).permute(1, 0, 3, 2, 4)  # (nkv,B,H,kc,D)
-    vc = v.reshape(b, nkv, kv_chunk, h, d).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(b, nkv, kv_chunk, h, dv).permute(1, 0, 3, 2, 4)
     dev = q.device
     q_pos = q_offset + torch.arange(sq, device=dev).reshape(nq, q_chunk)
     kv_pos_base = torch.arange(kv_chunk, device=dev)
 
     m = torch.full((nq, b, h, q_chunk), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((nq, b, h, q_chunk), dtype=torch.float32, device=dev)
-    acc = torch.zeros((nq, b, h, q_chunk, d), dtype=torch.float32, device=dev)
+    acc = torch.zeros((nq, b, h, q_chunk, dv), dtype=torch.float32, device=dev)
     for ki in range(nkv):
         s_ = _scores(qc, kc[ki])  # (nq,B,H,qc,kc)
         if causal and not cross:
@@ -385,8 +389,8 @@ def chunked_attention(
         acc = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(), vc[ki].float())
         m = m_new
     out = (acc / torch.clamp(l[..., None], min=1e-30)).to(v.dtype)
-    # (nq, B, H, qc, D) -> (B, Sq, H, D)
-    return out.permute(1, 0, 3, 2, 4).reshape(b, sq, h, d)
+    # (nq, B, H, qc, Dv) -> (B, Sq, H, Dv)
+    return out.permute(1, 0, 3, 2, 4).reshape(b, sq, h, dv)
 
 
 def attention_train(p, x, cfg, kind: str, theta: float, q_chunk: int = 1024,
@@ -525,6 +529,106 @@ def attention_decode(p, x, cfg, kind: str, theta: float, cache: dict, pos: int,
     return out @ p["wo"].to(x.dtype), cache
 
 
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2/V3)
+# ---------------------------------------------------------------------------
+
+
+def mla_specs(cfg) -> dict:
+    """An ``mla`` layer's attention: ``wq`` (d -> heads x (nope + rope)),
+    ``wkv_a`` (d -> the latent and the rotary key every head shares), the
+    latent's norm ``kv_norm``, ``wkv_b`` (latent -> heads x (nope key +
+    value): W_UK and W_UV side by side in each head) and ``wo``."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return dict(
+        wq=ParamSpec((d, h * (dn + dr)), ("embed", "qkv")),
+        wkv_a=ParamSpec((d, r + dr), ("embed", None)),
+        kv_norm=ParamSpec((r,), (None,), init="zeros"),
+        wkv_b=ParamSpec((r, h * (dn + dv)), (None, "qkv")),
+        wo=ParamSpec((h * dv, d), ("qkv", "embed")),
+    )
+
+
+def mla_project(p, x, cfg, positions):
+    """Of ``x`` (B, S, D) at ``positions``: q's parts without and with
+    positions, (B, S, H, nope) and (B, S, H, rope), the normed latent (B,
+    S, r) and the rotary key (B, S, rope), RoPE applied as `apply_rope`
+    does (rotary halves, fp32 angles)."""
+    b, s, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = (x @ p["wq"].to(x.dtype)).view(b, s, h, dn + dr)
+    q_nope, q_rope = q.split([dn, dr], dim=-1)
+    c, k_rope = (x @ p["wkv_a"].to(x.dtype)).split([r, dr], dim=-1)
+    c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c, k_rope
+
+
+def mla_train(p, x, cfg, q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Full-sequence (forward/prefill) latent attention, not absorbed: each
+    head's nope key and value expanded from the latent, then causal
+    `chunked_attention` over (nope + rope)-wide keys and ``v_head_dim``-wide
+    values.  Returns ``(out, (c, k_rope))``: the normed latent and the
+    rotary key are the decode cache.  Spans ``mla.project`` (q, the latent,
+    its norm, RoPE), ``mla.attend`` (the expansion and the attention) and
+    ``mla.out`` (``wo``)."""
+    b, s, _ = x.shape
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    with trace.span("mla.project"):
+        positions = torch.arange(s, device=x.device)[None, :]
+        q_nope, q_rope, c, k_rope = mla_project(p, x, cfg, positions)
+    with trace.span("mla.attend"):
+        k_nope, v = (c @ p["wkv_b"].to(x.dtype)).view(b, s, h, dn + dv).split([dn, dv], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(-1, -1, h, -1)], dim=-1)
+        out = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    with trace.span("mla.out"):
+        out = out.reshape(b, s, h * dv).to(x.dtype) @ p["wo"].to(x.dtype)
+    return out, (c, k_rope)
+
+
+def mla_decode(p, x, cfg, cache: dict, pos: int):
+    """One token of latent attention, absorbed.  The step's latent and rotary
+    key are appended to the cache (``dict(c=(B, S, r), kr=(B, S, rope))``,
+    updated in place) at ``pos``, a host int; each head's nope query is
+    taken into the latent space through its W_UK (its slice of ``wkv_b``);
+    the scores are over the latent and the rotary key of every slot up to
+    ``pos``, the left pads included; the probabilities weigh the latents,
+    and each head's sum goes through its W_UV, then ``wo``.  Per-head keys
+    and values are never formed.  The absorbed query, the scores, the
+    softmax and both sums are fp32 (bf16 operands upcast exactly); the
+    probabilities are cast to the cache's dtype first, as `decode_attend`
+    casts them to the values'.  Spans as `mla_train`'s; ``mla.attend``
+    carries ``rows`` and ``slots`` (the slots each row reads) while the
+    tracer is on."""
+    b = x.shape[0]
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if pos >= cache["c"].shape[1]:
+        raise IndexError(f"decode position {pos} beyond the cache's {cache['c'].shape[1]} slots")
+    with trace.span("mla.project"):
+        positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q_nope, q_rope, c_new, kr_new = mla_project(p, x, cfg, positions)
+        cache["c"][:, pos] = c_new[:, 0].to(cache["c"].dtype)
+        cache["kr"][:, pos] = kr_new[:, 0].to(cache["kr"].dtype)
+    w = p["wkv_b"].view(r, h, dn + dv)
+    with trace.span("mla.attend", dict(rows=b, slots=pos + 1) if trace.active() else None):
+        q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w[..., :dn].float())
+        c = cache["c"][:, :pos + 1].float()  # (B, n, r)
+        kr = cache["kr"][:, :pos + 1].float()  # (B, n, rope)
+        s_ = (torch.matmul(q_lat, c.transpose(1, 2))
+              + torch.matmul(q_rope[:, 0].float(), kr.transpose(1, 2)))
+        prob = torch.softmax(s_ * (1.0 / math.sqrt(dn + dr)), dim=-1).to(cache["c"].dtype)
+        o_lat = torch.matmul(prob.float(), c)  # (B, H, r)
+    with trace.span("mla.out"):
+        o = torch.einsum("bhr,rhv->bhv", o_lat, w[..., dn:].float())
+        out = o.reshape(b, 1, h * dv).to(x.dtype) @ p["wo"].to(x.dtype)
+    return out, cache
+
+
 def cross_attention_specs(cfg) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
@@ -605,6 +709,8 @@ def moe_specs(cfg) -> dict:
             ws_up=ParamSpec((d, fs), ("embed", "mlp")),
             ws_down=ParamSpec((fs, d), ("mlp", "embed")),
         )
+    if cfg.router_scoring == "sigmoid":  # the selection bias, fp32 (`model.FP32_PARAMS`)
+        s["router_bias"] = ParamSpec((e,), (None,), init="zeros")
     return s
 
 
@@ -613,9 +719,10 @@ class Routing(NamedTuple):
     assignments (``Ng * k`` per group) are sorted expert-major, stably, so
     within an expert earlier tokens come first."""
 
-    probs: torch.Tensor  # (G, Ng, E) fp32 router probabilities
+    probs: torch.Tensor  # (G, Ng, E) fp32 router probabilities (sigmoid: scores over their sum)
     expert_idx: torch.Tensor  # (G, Ng, k) top-k experts, the lower index first on ties
-    gate_vals: torch.Tensor  # (G, Ng, k) top-k probabilities renormalized to sum 1
+    gate_vals: torch.Tensor  # (G, Ng, k) top-k probabilities or scores renormalized to sum 1
+    #                          (times ``routed_scale``)
     aux_loss: torch.Tensor  # () Switch-style load-balancing loss
     cap: int  # slots per expert and group
     order: torch.Tensor  # (G, Ng*k) sorted position -> flat (token-major) index
@@ -626,17 +733,34 @@ class Routing(NamedTuple):
 def moe_route(p, xt: torch.Tensor, cfg) -> Routing:
     """Top-k routing, the aux loss, and each assignment's capacity slot.
 
-    xt: (G, Ng, D).  The capacity is ``min(max(ceil(Ng*k/E * cf), 8),
-    Ng*k)``; an expert's assignments beyond it are dropped, earliest
-    tokens kept (the reference's stable sort)."""
+    xt: (G, Ng, D).  ``cfg.router_scoring`` "softmax": the top-k of the
+    probabilities, renormalized.  "sigmoid" (DeepSeek-V3's ``noaux_tc``
+    with one group): the top-k of the sigmoid scores (of fp32 logits) plus
+    the fp32 ``router_bias``, which moves the choice and not the gates;
+    the gates are the chosen experts' scores,
+    renormalized, and the aux loss reads the scores over their sum.  Both
+    times ``routed_scale`` where it is not 1.  The capacity is
+    ``min(max(ceil(Ng*k/E * cf), 8), Ng*k)``; an expert's assignments
+    beyond it are dropped, earliest tokens kept (the reference's stable
+    sort)."""
     g, ng, _ = xt.shape
     e, k = cfg.n_experts, cfg.top_k
-    logits = (xt @ p["router"].to(xt.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)  # (G, Ng, E)
-    # jax.lax.top_k's order: descending, the lower index first on ties
-    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, expert_idx = gate_vals[..., :k], expert_idx[..., :k]
+    if cfg.router_scoring == "sigmoid":
+        # fp32 logits, as DeepSeek-V3's gate computes them
+        scores = torch.sigmoid(xt.float() @ p["router"].float())
+        choice = scores + p["router_bias"].float()
+        expert_idx = torch.sort(choice, dim=-1, descending=True, stable=True)[1][..., :k]
+        gate_vals = scores.gather(-1, expert_idx)
+        probs = scores / scores.sum(-1, keepdim=True)
+    else:
+        logits = (xt @ p["router"].to(xt.dtype)).float()
+        probs = torch.softmax(logits, dim=-1)  # (G, Ng, E)
+        # jax.lax.top_k's order: descending, the lower index first on ties
+        gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate_vals, expert_idx = gate_vals[..., :k], expert_idx[..., :k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    if cfg.routed_scale != 1.0:
+        gate_vals = gate_vals * cfg.routed_scale
 
     # aux load-balancing loss (Switch-style), group-averaged
     me = probs.mean((0, 1))
@@ -713,6 +837,7 @@ def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1, constrain_fn=None):
         # kept slots are unique; a dropped assignment adds exact zeros
         buf = torch.zeros((g, e * cap, d), dtype=xt.dtype, device=xt.device).scatter_add(
             1, r.dst[..., None].expand(-1, -1, d), gathered).reshape(g, e, cap, d)
+        del gathered  # the buffers of a long prefill are GBs each: each goes when read
 
         def run_experts(buf, w_gate, w_up, w_down):
             h = a(torch.einsum("gecd,edf->gecf", buf, w_gate)) * torch.einsum(
@@ -733,17 +858,20 @@ def moe_ffn(p, x: torch.Tensor, cfg, n_groups: int = 1, constrain_fn=None):
             pl = [list(t.placements) for t in (buf, *ws)]
             y = local_map(run_experts, out_placements=pl[0], in_placements=tuple(pl))(buf, *ws)
         y = reshape(y, g, e * cap, d)
+        del buf
 
     with trace.span("moe.combine"):
         sg = r.gate_vals.reshape(g, ng * k).gather(1, r.order)
         yd = y.gather(1, r.dst[..., None].expand(-1, -1, d))  # (G, Ng*k, D)
         contrib = torch.where(keep, yd * sg[..., None].to(y.dtype), 0)
+        del y, yd
         # each token's k sorted positions, in ascending expert order
         inv = torch.zeros_like(r.order).scatter(
             1, r.order, torch.arange(ng * k, device=x.device).expand(g, -1).contiguous())
         pos = inv.reshape(g, ng, k).gather(2, torch.argsort(r.expert_idx, dim=-1))
         per_tok = contrib.gather(1, pos.reshape(g, ng * k, 1).expand(-1, -1, d)).reshape(
             g, ng, k, d)
+        del contrib
         out = torch.zeros((g, ng, d), dtype=xt.dtype, device=x.device)
         for j in range(k):
             out = out + per_tok[:, :, j]

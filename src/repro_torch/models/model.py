@@ -1,6 +1,7 @@
 """Model assembly of the port: config -> param specs -> forward / loss /
 prefill / decode, for every block kind of the zoo: ``attn``, ``local``
-(dense or MoE FFN), ``ssm`` (Mamba-2), ``rglru`` (RG-LRU), ``xattn`` (a
+and ``mla`` (multi-head latent attention; each with a dense or MoE FFN),
+``ssm`` (Mamba-2), ``rglru`` (RG-LRU), ``xattn`` (a
 decoder block with cross-attention over the encoder, whisper) and the
 bidirectional ``enc`` blocks of the encoder, plus the image-patch prefix
 of a VLM (internvl2).
@@ -27,7 +28,8 @@ makes -- positions, masks, zero buffers -- join as replicated).  Without a
 mesh nothing of this runs: one device, one MoE group.
 
 Caches are one dict per layer, updated in place by `decode_step`:
-``{k, v}`` for attention, ``{k, v, xk, xv}`` for ``xattn`` (the encoder's
+``{k, v}`` for attention, ``{c, kr}`` for ``mla`` (the normed latent and
+the rotary key), ``{k, v, xk, xv}`` for ``xattn`` (the encoder's
 cross-attention keys and values, filled once at prefill), ``{conv,
 state}`` for the recurrent kinds (the state fp32).
 """
@@ -49,8 +51,10 @@ from . import layers as L
 from . import ssm as S
 from .config import ModelConfig, ParallelConfig
 
-IN_SLICE_KINDS = ("attn", "local", "ssm", "rglru", "xattn", "enc")
+BLOCK_KINDS = ("attn", "local", "mla", "ssm", "rglru", "xattn", "enc")
 RECURRENT_KINDS = ("ssm", "rglru")
+#: the kinds whose decode attention is the hand kernel (`layers.attention_decode`)
+KERNEL_KINDS = ("attn", "local", "xattn")
 
 #: the residual stream between blocks: batch over data, sequence over model
 #: where it divides (the reference's sequence-parallel constraint)
@@ -64,6 +68,7 @@ GATHERED = ("batch", None, None)
 FP32_PARAMS = frozenset({
     "ssm.a_log", "ssm.dt_bias", "ssm.d_skip",
     "rglru.wa", "rglru.ba", "rglru.wx", "rglru.bx", "rglru.lam",
+    "moe.router_bias",
 })
 
 
@@ -73,12 +78,14 @@ def keeps_fp32(name: str) -> bool:
     return any(name == leaf or name.endswith("." + leaf) for leaf in FP32_PARAMS)
 
 
-def _check_in_slice(cfg: ModelConfig) -> None:
+def _check_kinds(cfg: ModelConfig, mesh) -> None:
     for kind in dict.fromkeys(cfg.layer_kinds):
-        if kind not in IN_SLICE_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet (ported "
-                f"kinds: {IN_SLICE_KINDS})")
+        if kind not in BLOCK_KINDS:
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r} (kinds: {BLOCK_KINDS})")
+    if mesh is not None and "mla" in cfg.layer_kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: the mesh path does not run the 'mla' block kind; build the model "
+            f"without a mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -90,8 +97,9 @@ def block_specs(cfg: ModelConfig, kind: str, layer_idx: int = 10**9) -> dict:
     """A layer's params by block kind; an attention layer of an MoE model
     has ``moe`` in place of ``mlp`` from ``first_dense_layers`` on."""
     norm = lambda: L.ParamSpec((cfg.d_model,), (None,), init="zeros")
-    if kind in ("attn", "local"):
-        s = dict(norm1=norm(), attn=L.attention_specs(cfg), norm2=norm())
+    if kind in ("attn", "local", "mla"):
+        attn = L.mla_specs(cfg) if kind == "mla" else L.attention_specs(cfg)
+        s = dict(norm1=norm(), attn=attn, norm2=norm())
         if cfg.is_moe and layer_idx >= cfg.first_dense_layers:
             s["moe"] = L.moe_specs(cfg)
         else:
@@ -231,7 +239,7 @@ class Model(nn.Module):
         param_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        _check_in_slice(cfg)
+        _check_kinds(cfg, mesh)
         dev = resolve_device(device, allow_meta=True)
         self.cfg = cfg
         self.pc = pc or ParallelConfig()
@@ -487,7 +495,8 @@ class Model(nn.Module):
     def _block_train(self, i: int, p, x, kind: str, enc_out=None):
         """Block ``i`` over the whole sequence -> (x, prefill cache, MoE aux
         loss or None).  The cache is ``(k, v)`` un-repeated for attention,
-        ``(k, v, xk, xv)`` for ``xattn``, ``dict(conv, state)`` for the
+        ``(c, k_rope)`` for ``mla``, ``(k, v, xk, xv)`` for ``xattn``,
+        ``dict(conv, state)`` for the
         recurrent kinds.  Spans ``block.attn`` (the mixer, cross-attention
         included) and ``block.ffn``, each with its norm and residual add."""
         cfg = self.cfg
@@ -498,6 +507,9 @@ class Model(nn.Module):
                     p["attn"], h, cfg, "attn" if kind == "xattn" else kind, cfg.rope_theta,
                     q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
                     constrain_fn=self._mesh_constrain)
+            elif kind == "mla":
+                out, cache = L.mla_train(p["attn"], h, cfg, q_chunk=self.q_chunk,
+                                         kv_chunk=self.kv_chunk)
             elif kind == "ssm":
                 out, cache = S.mamba2_forward(p["ssm"], h, cfg)
                 return self._residual(x, out), cache, None
@@ -630,6 +642,9 @@ class Model(nn.Module):
         zeros = lambda *shp, dtype=self.compute_dtype: torch.zeros(
             shp, dtype=dtype, device=self.device)
         hd = cfg.resolved_head_dim
+        if kind == "mla":
+            return dict(c=zeros(batch, max_seq, cfg.kv_lora_rank),
+                        kr=zeros(batch, max_seq, cfg.qk_rope_head_dim))
         if kind in ("attn", "local", "xattn"):
             shp = (batch, self.cache_len(kind, max_seq), cfg.n_kv_heads, hd)
             c = dict(k=zeros(*shp), v=zeros(*shp))
@@ -653,6 +668,8 @@ class Model(nn.Module):
         """Logical axes of `cache_shape_for`'s entries (the reference's
         names): alignment pads and rotates the ``kv_seq`` axis only, so the
         cross-attention keys and values pass through it."""
+        if kind == "mla":
+            return dict(c=("batch", "kv_seq", None), kr=("batch", "kv_seq", None))
         if kind in ("attn", "local", "xattn"):
             kv = ("batch", "kv_seq", "kv_heads", None)
             c = dict(k=kv, v=kv)
@@ -691,6 +708,8 @@ class Model(nn.Module):
                 out, cache = L.attention_decode(p["attn"], h, cfg,
                                                 "attn" if kind == "xattn" else kind,
                                                 cfg.rope_theta, cache, pos, self._mesh_constrain)
+            elif kind == "mla":
+                out, cache = L.mla_decode(p["attn"], h, cfg, cache, pos)
             elif kind == "ssm":
                 out, cache = S.mamba2_decode(p["ssm"], h, cfg, cache)
                 return self._constrain(x + out, SEQ_SHARD), cache
@@ -732,20 +751,25 @@ class Model(nn.Module):
         The encoder and the patch prefix run first; local layers keep only
         their last ``window`` keys; ``xattn`` layers keep the encoder's
         cross keys and values; recurrent layers keep their conv inputs and
-        final fp32 state.  On a card, a model with attention layers starts
-        building the decode kernel first (`layers.prefetch_decode_kernel`).
+        final fp32 state; ``mla`` layers keep the normed latent and the
+        rotary key.  On a card, a model with layers of the decode kernel's
+        kinds (`KERNEL_KINDS`) starts building it first
+        (`layers.prefetch_decode_kernel`).
         Span ``model.prefill`` over ``block.*`` and ``model.unembed``."""
         cfg, cd = self.cfg, self.compute_dtype
         with trace.span("model.prefill"):
             x, enc_out = self._inputs(self._view(), batch)
             x = self._constrain(x, SEQ_SHARD)
-            if any(k not in RECURRENT_KINDS for k in self.kinds):
+            if any(k in KERNEL_KINDS for k in self.kinds):
                 L.prefetch_decode_kernel(x, self._mesh_constrain)
             caches = []
             for i, (p, kind) in enumerate(zip(self.layers, self.kinds)):
                 x, cache, _ = self._block_train(i, p, x, kind, enc_out)
                 if kind in RECURRENT_KINDS:
                     caches.append(cache)
+                    continue
+                if kind == "mla":
+                    caches.append(dict(c=cache[0].to(cd), kr=cache[1].to(cd)))
                     continue
                 k, v, *xkv = cache
                 if kind == "local" and cfg.window and cfg.window < x.shape[1]:

@@ -1,7 +1,7 @@
 """Spans and counters inside the port, on the profiler's clock.
 
-The LM path (`serve.engine`, `models.model`, `models.layers.moe_ffn`,
-`train.steps`) opens named spans at its layer boundaries and bumps named
+The LM path (`serve.engine`, `models.model`, `models.layers.moe_ffn` and
+the latent attention, `train.steps`) opens named spans at its layer boundaries and bumps named
 counters where the work happens.  Like `runtime.faults`, the module is
 strictly a no-op unless it is on, and it is on exactly while
 
@@ -82,6 +82,10 @@ SPANS: dict[str, str] = {
     "block.attn": "one layer's norm, mixer and residual add (attrs: layer, kind)",
     "block.ffn": "one layer's norm, MLP or MoE and residual add (attrs: layer, kind)",
     "model.unembed": "the final norm and the unembedding",
+    "mla.project": "mla_train / mla_decode: q, the latent and its norm, RoPE, the cache append",
+    "mla.attend": ("mla_train: the keys and values expanded, attention; mla_decode: absorbed "
+                   "attention over the latent cache (attrs: rows, slots)"),
+    "mla.out": "mla_train / mla_decode: W_UV where absorbed, and wo",
     "moe.route": "moe_ffn: the router, top-k and capacity slots",
     "moe.experts": "moe_ffn: the dispatch buffer and the experts",
     "moe.combine": "moe_ffn: the weighted combine and the shared experts",

@@ -122,7 +122,14 @@ def test_configs_and_param_counts_equal_the_reference(arch):
     for get in ("get_config", "smoke_config"):
         cfg, ref = getattr(PCF, get)(arch), getattr(RCF, get)(arch)
         assert type(cfg).__module__ == "repro_torch.models.config"
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref), (arch, get)
+        # the port's own fields (latent attention, the sigmoid router) sit at
+        # their defaults in every zoo config; every other field is the reference's
+        got, want = dataclasses.asdict(cfg), dataclasses.asdict(ref)
+        own = {f.name: f.default for f in dataclasses.fields(cfg) if f.name not in want}
+        assert set(own) == {"kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+                            "v_head_dim", "router_scoring", "routed_scale"}
+        assert {k: got[k] for k in own} == own, (arch, get)
+        assert {k: v for k, v in got.items() if k not in own} == want, (arch, get)
         assert cfg.n_params() == ref.n_params()
         assert cfg.n_active_params() == ref.n_active_params()
         assert cfg.layer_kinds == ref.layer_kinds
